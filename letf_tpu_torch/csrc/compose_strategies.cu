@@ -6,8 +6,9 @@
 // pallas_compose_strategies_run). The day body is the reference's
 // (pallas_strategies.py:321-966) in meaning, line for line: stress + crisis
 // jumps + funding + leverage/expense/financing + tracking error with counter
-// draws from streams 16+ and 32+ (TE chains for the four consumed assets
-// only) and the per-day repair; ring-buffer signals with exact add/subtract
+// draws from streams 16+ and 32+ (compose_day.cuh, shared with kernel K5;
+// TE chains for the four consumed assets only) and the per-day repair;
+// ring-buffer signals with exact add/subtract
 // window sums, pandas min_periods NaN rules and shift(1) reads; the 19
 // strategies with the reference quirks S7/S8/S9/S19; the cashflow schedule
 // and ruin floor; the validity accumulators. Day 0 is a separate template
@@ -25,18 +26,18 @@
 // input loads and the 64-row summary store coalesce. Hiding the latency
 // (more trials per SM, splitting the draws out) is later work.
 
-#include "common.cuh"
+#include "compose_day.cuh"
 
 namespace {
 
+using namespace compose_day;
+
 constexpr int NS = 19;
-constexpr int NA = 6;
 constexpr int NSIG = 16;
 constexpr int RW_X = 64, RW_SPY = 128, RW_P = 256, RW_S20 = 8;
 constexpr int R_X = 0, R_SPY = RW_X, R_P = RW_X + RW_SPY,
               R_S20 = RW_X + RW_SPY + RW_P;
 constexpr int RING_ROWS = R_S20 + RW_S20;
-constexpr int STRESS_IDX = 16, TE_IDX = 32;
 constexpr float SPREAD = 0.0003f, TURNOVER_EPS = 1e-4f;
 constexpr float SQ252 = 15.874507866387544f;
 constexpr float W6A = 0.6f, W6B = 0.4f;
@@ -50,12 +51,6 @@ __device__ __forceinline__ float ruin_floor(float e) {
   return e < FLT_MIN_NORMAL ? 0.0f : e;
 }
 
-// Stress-table rows ([16, 2]) and asset-table rows ([9, A]).
-enum { LIQ_MU, LIQ_PHI, LIQ_SIG, CRED_MU, CRED_PHI, CRED_SIG, JP_BASE,
-       JP_SCALE, CASH_RATE, F_BASE, F_BVIX, F_BINV, F_BLIQ, F_BCRED, F_MIN,
-       F_MAX, NSP };
-enum { C_LEV, C_ER, C_BETA, C_FSPREAD, C_RHO, C_SQ, C_TE_SCALE, C_DOWNSIDE,
-       C_CLIP, NAP };
 // Constants table (ops/compose_strategies.py::kernel_consts).
 enum { K_IC, K_SP0, K_SPD, K_RCPD_LEV, K_RCPD, K_L6A, K_L6B, K_IC_W6A,
        K_IC_W6B, K_ONE_M_EMA, K_EMA, K_IDX_TQQQ, K_IDX_SPY, K_IDX_SSO,
@@ -102,14 +97,6 @@ __device__ __forceinline__ float guard(float v, float eps, float def,
   if (m) *m = mm;
   return bsel(mm, v, def);
 }
-__device__ __forceinline__ float t_polar(uint32_t dk, int idx0, float df,
-                                         float m2df) {
-  const float u1 = letf_stream_unit(dk, idx0);
-  const float u2 = letf_stream_unit(dk, idx0 + 1);
-  const float w = expf(logf(u1) * m2df) - 1.0f;
-  return sqrtf(df * w) * cosf(LETF_TWO_PI * u2);
-}
-
 template <bool FIRST>
 __device__ __forceinline__ void day(State& st, const Ctx& c, int t,
                                     float spy_w, float qqq_w, float tlt_w,
@@ -126,106 +113,36 @@ __device__ __forceinline__ void day(State& st, const Ctx& c, int t,
   st.vmin = jmin(st.vmin, vix);
   st.vmax = jmax(st.vmax, vix);
   st.rhi = st.rhi + reg;
-#define G2(i) (T.spa[i] + T.spd[i] * reg)
 
-  // ---- counter draws of the day ----
+  // ---- stress + crisis jumps + funding (compose_day.cuh) ----
   const uint32_t dk = letf_day_key(c.lane_key, (uint32_t)t, c.s1);
-  float n_liq, n_cred;
-  {
-    const float u1 = letf_stream_unit(dk, STRESS_IDX);
-    const float u2 = letf_stream_unit(dk, STRESS_IDX + 1);
-    const float rad = sqrtf(-2.0f * logf(u1));
-    const float ang = LETF_TWO_PI * u2;
-    n_liq = rad * cosf(ang);
-    n_cred = rad * sinf(ang);
-  }
-  const float u_jump = letf_stream_unit(dk, STRESS_IDX + 4);
-  const float t5 = t_polar(dk, STRESS_IDX + 2, 5.0f, (float)(-2.0 / 5.0));
-
-  // ---- stress + crisis jumps ----
-  const float lmu = G2(LIQ_MU), cmu = G2(CRED_MU);
-  float liq_n, cred_n, jump_on;
-  if (FIRST) {
-    liq_n = lmu;
-    cred_n = cmu;
-    jump_on = 0.0f;
-  } else {
-    liq_n = jclip(lmu + G2(LIQ_PHI) * (st.liq - lmu) + G2(LIQ_SIG) * n_liq,
-                  0.0f, 3.0f);
-    cred_n = jclip(cmu + G2(CRED_PHI) * (st.cred - cmu)
-                   + G2(CRED_SIG) * n_cred, 0.0f, 3.0f);
-  }
-  const float vix_amp = jmax((vix - 25.0f) / 30.0f, 0.0f);
-  const float pjump = jclip(G2(JP_BASE) + 0.008f * vix_amp + 0.003f * liq_n,
-                            0.0f, 0.01f);
-  if (!FIRST) jump_on = f01(u_jump < pjump);
-  const float signed_jump = jump_on * t5 * G2(JP_SCALE);
-  const float spy_a = jclip(spy_w - signed_jump, -0.95f, 3.0f);
-  const float qqq_a = jclip(qqq_w - 1.12f * signed_jump, -0.95f, 4.0f);
-  st.jc = st.jc + jump_on;
-  st.ls = st.ls + liq_n;
-  st.cs = st.cs + cred_n;
-  st.liq = liq_n;
-  st.cred = cred_n;
-
-  // ---- funding spread ----
-  const float risk_free = jclip(irx, 0.0f, 20.0f) / 100.0f;
-  const float term = 1.25f - 1.1f * jclip(cred_n, 0.0f, 3.0f);
-  const float inv_curve = jmax(-term, 0.0f);
-  const float stress_v = jmax(vix - 20.0f, 0.0f);
-  float spread = T.spa[F_BASE] + T.spa[F_BVIX] * stress_v
-                 + T.spa[F_BINV] * inv_curve
-                 + T.spa[F_BLIQ] * jclip(liq_n, 0.0f, 3.0f)
-                 + T.spa[F_BCRED] * jclip(cred_n, 0.0f, 3.0f);
-  spread = jmin(jmax(spread, T.spa[F_MIN]), T.spa[F_MAX]);
+  const DayStress ds = stress_day<FIRST>(T.spa, T.spd, dk, st.liq, st.cred,
+                                         spy_w, qqq_w, vix, irx, reg);
+  st.jc = st.jc + ds.jump_on;
+  st.ls = st.ls + ds.liq_n;
+  st.cs = st.cs + ds.cred_n;
 
   // ---- leverage / costs / tracking error: TQQQ, SPY, SSO, TMF ----
-  const float vix_mult = jclip(sqrtf(vix / 20.0f), 0.5f, 1.5f);
-  const float regime_mult = 1.0f + 0.15f * reg;
   float fin_day = f01(isfinite(tlt_w)) * f01(isfinite(vix));
   float etf[4];
 #pragma unroll
   for (int k = 0; k < 4; ++k) {
     const int a = (int)K[K_IDX_TQQQ + k];
     const int ui = (int)K[K_UND + a];
-    const float src = ui == 0 ? spy_a : (ui == 1 ? qqq_a : tlt_w);
-    const float* ap = T.ap;
-    const float und = src * ap[C_BETA * NA + a];
-    const float lev = ap[C_LEV * NA + a];
-    const float borrow = jmax(lev - 1.0f, 0.0f)
-                         * jmax(risk_free + spread, 0.0f) / 252.0f;
-    const float lev_ret = lev * und - ap[C_ER * NA + a] / 252.0f - borrow;
-    const float t_a = t_polar(dk, TE_IDX + 2 * a, K[K_DF + a], K[K_M2DF + a]);
-    const float negu = f01(und < 0.0f);
-    const float move = (1.0f + 0.3f * fabsf(und))
-                       * (ap[C_DOWNSIDE * NA + a] * negu
-                          + 0.98f * (1.0f - negu));
-    const float innov_te = t_a * ap[C_TE_SCALE * NA + a] * vix_mult
-                           * regime_mult;
-    const float te_n = FIRST ? 0.0f
-                             : ap[C_RHO * NA + a] * st.te[k]
-                                   + ap[C_SQ * NA + a] * innov_te * move;
-    const float bias_n = K[K_EMA] * te_n + K[K_ONE_M_EMA] * st.bias[k];
-    const float cap = ap[C_CLIP * NA + a];
-    const float safe = jmax(cap, 1e-6f);
-    const float raw = te_n - bias_n;
-    const float mclip = f01(cap > 0.0f);
-    const float te_out = mclip * (safe * tanhf(raw / safe))
-                         + (1.0f - mclip) * raw;
-    const float e = lev_ret + te_out;
+    const float src = ui == 0 ? ds.spy_a : (ui == 1 ? ds.qqq_a : tlt_w);
+    const float e = asset_day<FIRST>(T.ap, a, src, ds, dk, K[K_DF + a],
+                                     K[K_M2DF + a], K[K_EMA],
+                                     K[K_ONE_M_EMA], st.te[k], st.bias[k]);
     const float fin_a = f01(isfinite(e));
     fin_day = fin_day * fin_a;
     etf[k] = jclip(bsel(fin_a, e, 0.0f), -0.999f, 10.0f);
-    st.te[k] = te_n;
-    st.bias[k] = bias_n;
   }
   st.fin = st.fin * fin_day;
   const float r_tqqq = etf[0], r_spy = etf[1], r_sso = etf[2],
               r_tmf = etf[3];
-  const float cashr = G2(CASH_RATE) / 252.0f;
+  const float cashr = g2(T.spa, T.spd, CASH_RATE, reg) / 252.0f;
   const float vix_prev = st.pvix;
   const float pp = st.psig[G_PRICE];                 // NaN on day 0
-#undef G2
 
   // ---- rolling signals (today's values) ----
   const float price = FIRST ? 100.0f * (1.0f + r_spy)

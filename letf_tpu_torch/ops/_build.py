@@ -1,8 +1,9 @@
 """Build and bind the port's CUDA kernels.
 
-All ``letf_tpu_torch/csrc/*.cu`` sources compile with nvcc into ONE shared
-library with a plain C interface, at first use, into ``build/letf_tpu_torch/``
-at the repository root (listed in .gitignore). The library file name carries
+Each ``letf_tpu_torch/csrc/*.cu`` source compiles with its own nvcc
+process, all started together, and the objects link into ONE shared library
+with a plain C interface, at first use, into ``build/letf_tpu_torch/`` at
+the repository root (listed in .gitignore). The library file name carries
 a hash of the sources and flags, so an edited source rebuilds. It is loaded
 with ctypes; every C entry returns ``cudaGetLastError()`` after its launch
 and ``check`` raises on a non-zero code.
@@ -29,7 +30,7 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "letf_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-fmad=false")
+              "-O3", "-Xcompiler", "-fPIC", "-fmad=false")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -41,6 +42,10 @@ SIGNATURES = {
     "letf_window": [_I, _P, _P, _P, _P, _I, _I, _I, _P],
     "letf_compose_strategies": [_P, _P, _P, _P, _P, _U, _U, _P, _P, _P,
                                 _P, _P, _P, _P, _I, _I, _I, _I, _P, _P],
+    "letf_compose": [_P, _P, _P, _P, _U, _U, _P, _P, _P, _P, _P, _P, _I, _I,
+                     _P, _P, _P, _P, _P, _P],
+    "letf_merge": [_I, _P, _P, _I, _I, _I, _P],
+    "letf_wash": [_P, _P, _P, _I, _I, _P, _P, _P, _P],
 }
 
 _lib = None
@@ -74,14 +79,31 @@ def build(verbose: bool = False) -> Path:
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".tmp{os.getpid()}.so")
-    cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-           "-o", str(tmp), *map(str, sorted(CSRC.glob("*.cu")))]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if verbose or res.returncode != 0:
-        print(res.stdout + res.stderr)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}): {' '.join(cmd)}")
+    nvcc = _nvcc()
+    tag = f"tmp{os.getpid()}"
+    srcs = sorted(CSRC.glob("*.cu"))
+    objs = [BUILD_DIR / f"{s.stem}.{tag}.o" for s in srcs]
+    cmds = [[nvcc, *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
+             "-c", "-o", str(o), str(s)] for s, o in zip(srcs, objs)]
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    logs = [p.communicate()[0] for p in procs]
+    tmp = out.with_suffix(f".{tag}.so")
+    link = [nvcc, "-shared", *NVCC_FLAGS[:2], "-o", str(tmp), *map(str, objs)]
+    failed = [c for c, p in zip(cmds, procs) if p.returncode != 0]
+    if not failed:
+        res = subprocess.run(link, capture_output=True, text=True)
+        logs.append(res.stdout + res.stderr)
+        if res.returncode != 0:
+            failed.append(link)
+    if verbose or failed:
+        print("\n".join(x for x in logs if x))
+    for o in objs:
+        o.unlink(missing_ok=True)
+    if failed:
+        raise RuntimeError("nvcc failed: "
+                           + "; ".join(" ".join(c) for c in failed))
     os.replace(tmp, out)
     return out
 

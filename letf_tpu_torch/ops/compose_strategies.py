@@ -123,14 +123,7 @@ def compose_strategies_plain(sp, ap, ids, seed_words, spy, qqq, tlt, vix,
     nan_t = torch.full((B,), math.nan, **f32)
 
     # Counter draws of every day at once (pure functions of (trial, day)).
-    lane_key = rng.lane_keys(ids, seed_words)
-    dk = rng.day_keys(lane_key, torch.arange(S, device=dev), seed_words)
-    n_liq_all, n_cred_all = cp.normals(dk, cp.STRESS_IDX, 2)
-    (u_jump_all,) = cp.uniforms(dk, cp.STRESS_IDX + 4, 1)
-    t5_all = cp.t_polar(dk, cp.STRESS_IDX + 2, 5.0)
-    t_te_all = {a: cp.t_polar(dk, cp.TE_IDX + 2 * a, float(cp.TE_DFS[a]))
-                for a in needed}
-    del dk
+    dr = cp.draws(ids, seed_words, S, needed)
     spa, spd = sp[:, 0], sp[:, 1] - sp[:, 0]
     cf = cashflows.to(torch.float32) if cashflows is not None else None
 
@@ -170,85 +163,31 @@ def compose_strategies_plain(sp, ap, ids, seed_words, spy, qqq, tlt, vix,
         vmax = torch.maximum(vmax, vx)
         rhi = rhi + reg
 
-        def g2(i):
-            return spa[i] + spd[i] * reg
-
-        # ---- stress + crisis jumps ----
-        lmu, cmu = g2(cp.LIQ_MU), g2(cp.CRED_MU)
-        if first:
-            liq_n, cred_n = lmu, cmu
-            jump_on = torch.zeros_like(vx)
-        else:
-            liq_n = _clip(lmu + g2(cp.LIQ_PHI) * (liq - lmu)
-                          + g2(cp.LIQ_SIG) * n_liq_all[t], 0.0, 3.0)
-            cred_n = _clip(cmu + g2(cp.CRED_PHI) * (cred - cmu)
-                           + g2(cp.CRED_SIG) * n_cred_all[t], 0.0, 3.0)
-        vix_amp = torch.clamp_min((vx - 25.0) / 30.0, 0.0)
-        pjump = _clip(g2(cp.JP_BASE) + 0.008 * vix_amp + 0.003 * liq_n,
-                      0.0, 0.01)
-        if not first:
-            jump_on = _f(u_jump_all[t] < pjump)
-        signed_jump = jump_on * t5_all[t] * g2(cp.JP_SCALE)
-        spy_a = _clip(spy_w - signed_jump, -0.95, 3.0)
-        qqq_a = _clip(qqq_w - 1.12 * signed_jump, -0.95, 4.0)
-        jc = jc + jump_on
-        ls = ls + liq_n
-        cs = cs + cred_n
-        liq, cred = liq_n, cred_n
-
-        # ---- funding spread ----
-        risk_free = _clip(ir, 0.0, 20.0) / 100.0
-        term = 1.25 - 1.1 * _clip(cred_n, 0.0, 3.0)
-        inv_curve = torch.clamp_min(-term, 0.0)
-        stress_v = torch.clamp_min(vx - 20.0, 0.0)
-        spread = (spa[cp.F_BASE] + spa[cp.F_BVIX] * stress_v
-                  + spa[cp.F_BINV] * inv_curve
-                  + spa[cp.F_BLIQ] * _clip(liq_n, 0.0, 3.0)
-                  + spa[cp.F_BCRED] * _clip(cred_n, 0.0, 3.0))
-        spread = torch.minimum(torch.maximum(spread, spa[cp.F_MIN]),
-                               spa[cp.F_MAX])
+        # ---- stress + crisis jumps + funding (ops/compose.py) ----
+        d = cp.stress_day(spa, spd, dr, t, liq, cred, spy_w, qqq_w, vx, ir,
+                          reg)
+        jc = jc + d.jump_on
+        ls = ls + d.liq_n
+        cs = cs + d.cred_n
+        liq, cred = d.liq_n, d.cred_n
 
         # ---- leverage / costs / tracking error, consumed assets only ----
-        streams = (spy_a, qqq_a, tlt_w)
-        vix_mult = _clip(torch.sqrt(vx / 20.0), 0.5, 1.5)
-        regime_mult = 1.0 + 0.15 * reg
         etf_all = {}
         fin_day = _f(torch.isfinite(tlt_w)) * _f(torch.isfinite(vx))
         for a in needed:
-            und = streams[cp.UND_IDX[a]] * ap[cp.C_BETA, a]
-            lev = ap[cp.C_LEV, a]
-            borrow = (torch.clamp_min(lev - 1.0, 0.0)
-                      * torch.clamp_min(risk_free + spread, 0.0) / 252.0)
-            lev_ret = lev * und - ap[cp.C_ER, a] / 252.0 - borrow
-            negu = _f(und < 0)
-            move = ((1.0 + 0.3 * torch.abs(und))
-                    * (ap[cp.C_DOWNSIDE, a] * negu + 0.98 * (1.0 - negu)))
-            innov_te = (t_te_all[a][t] * ap[cp.C_TE_SCALE, a] * vix_mult
-                        * regime_mult)
-            if first:
-                te_n = torch.zeros_like(und)
-            else:
-                te_n = ap[cp.C_RHO, a] * te[a] + ap[cp.C_SQ, a] * innov_te \
-                    * move
-            bias_n = cp.EMA_ALPHA * te_n + (1.0 - cp.EMA_ALPHA) * bias[a]
-            cap = ap[cp.C_CLIP, a]
-            safe = torch.clamp_min(cap, 1e-6)
-            raw = te_n - bias_n
-            mclip = _f(cap > 0)
-            te_out = (mclip * (safe * torch.tanh(raw / safe))
-                      + (1.0 - mclip) * raw)
-            etf = lev_ret + te_out
+            etf, te[a], bias[a] = cp.asset_day(
+                ap, a, cp.underlying(d, tlt_w, a), d, dr.t_te[a][t], first,
+                te[a], bias[a])
             fin_a = _f(torch.isfinite(etf))
             fin_day = fin_day * fin_a
             etf_all[a] = _clip(_bsel(fin_a, etf, torch.zeros_like(etf)),
                                -0.999, 10.0)
-            te[a], bias[a] = te_n, bias_n
         fin = fin * fin_day
         r_tqqq = etf_all[C["idx_tqqq"]]
         r_spy = etf_all[C["idx_spy"]]
         r_sso = etf_all[C["idx_sso"]]
         r_tmf = etf_all[C["idx_tmf"]]
-        cashr = g2(cp.CASH_RATE) / 252.0
+        cashr = (spa[cp.CASH_RATE] + spd[cp.CASH_RATE] * reg) / 252.0
         vix_prev = pvix
         pp = psig["spy_price"]                     # NaN on day 0
 

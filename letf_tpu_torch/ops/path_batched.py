@@ -1,4 +1,4 @@
-"""Start conditions and regime paths of the production chunk (glue).
+"""Path generation: start conditions, regime paths, and the general path.
 
 Ports of ``letf_tpu/ops/path_batched.py``:
 
@@ -12,8 +12,18 @@ Ports of ``letf_tpu/ops/path_batched.py``:
   ends plus a cumsum (the JAX version's bf16 bucket einsum was a TPU matrix
   unit trick). A path that needs more than ``max_spells`` spells keeps its
   final regime, as in JAX.
+- ``windowed_chain``: the chain both chunk formulations share --
+  start conditions and regime spells, kernel K1 (joint), moment matching,
+  and the random-start window (kernel K2/K2', ``window_series``).
+- ``generate_paths_batched`` (``:992``), its kernel route (``:1025-1072``):
+  the chain, then kernel K5 (compose) and ``_finish_path`` (``:962``). The
+  draws are the counter draws of the kernels on every device, keyed by the
+  base trial id, so a replayed trial is the trial whose wealth the report
+  sampled; the TPU's padding of the batch to a multiple of 1024 is not
+  needed (one thread per trial).
 
-Glue runs in the dtype of the converted model tables (utils/device.py).
+Glue runs in the dtype of the converted model tables (utils/device.py);
+the kernels and the path's per-day series are float32.
 """
 
 from __future__ import annotations
@@ -24,7 +34,11 @@ import numpy as np
 import torch
 
 from letf_tpu import config as cfg
+from letf_tpu_torch.models import params as tparams
 from letf_tpu_torch.ops import rng
+from letf_tpu_torch.ops.compose import compose_generate
+from letf_tpu_torch.ops.joint import joint_generate
+from letf_tpu_torch.ops.window import window_offsets
 from letf_tpu_torch.utils.device import index_dtype
 
 
@@ -161,8 +175,13 @@ def simulate_regime_paths_spell(model, keys, start_regime, total_days: int,
         geo = torch.clamp_min(torch.ceil(lg / torch.log(reg.p_stay[r])), 1.0)
         dwells.append(torch.where(reg.has_dwell[r] > 0, emp, geo))
     dwell = torch.where(spell_regime == 0, dwells[0], dwells[1])
-    ends = torch.cumsum(torch.ceil(dwell).to(torch.int32), 1,
-                        dtype=torch.int32)                          # [B, K]
+    # A counter uniform of exactly 1.0 (float32 rounds 1 - 2**-25 up; one
+    # draw in 2**24) gives an infinite geometric dwell: that spell outlasts
+    # the horizon, as in the reference, whose spell-end buckets ignore ends
+    # past it. Bounding the dwell at T + 1 keeps the int32 spell ends from
+    # overflowing into negative scatter indices.
+    ends = torch.cumsum(torch.ceil(dwell).clamp_max(total_days + 1)
+                        .to(torch.int32), 1, dtype=torch.int32)     # [B, K]
     counts = torch.zeros((total_days + 1, B), dtype=torch.int32,
                          device=keys.device)
     counts.scatter_add_(0, ends.clamp_max(total_days).t().long(),
@@ -172,3 +191,117 @@ def simulate_regime_paths_spell(model, keys, start_regime, total_days: int,
     del counts
     completed.bitwise_and_(1).bitwise_xor_(start.to(torch.int32)[None, :])
     return completed.to(out_dtype)
+
+
+def window_series(chans, start_offset, sim_days: int, biases=()):
+    """Kernel K2' of the general path (``path_batched.window_series`` on
+    ``window_offsets_pallas``) and the slab chunk's K2: out[s, b] =
+    x[s + start_offset[b], b] (+ bias[b]) for [T, B] channels; no window
+    when T == sim_days (every offset is 0 then)."""
+    biases = list(biases) + [None] * (len(chans) - len(biases))
+    if chans[0].shape[0] == sim_days:
+        return [c if b is None else c + b[None, :]
+                for c, b in zip(chans, biases)]
+    return window_offsets(list(chans), start_offset.to(torch.int32),
+                          sim_days, biases=biases)
+
+
+def windowed_chain(model, run_key, trial_ids, antithetic, sim_days: int,
+                   buffer_days: int = 0, random_start_method: str = "offset",
+                   anchors=None, moment_matching: bool = True,
+                   max_spells: int | None = None):
+    """Start conditions, regime spells, K1 (joint), the moment-matching
+    bias 0.1 * (theoretical mean - the trial's mean over all T days) and
+    the K2 window. ``model``: the port's torch SimModel on the device of
+    ``trial_ids``; ``run_key``: a threefry key. Returns (StartConditions,
+    int32 ids, seed words, windowed [spy, qqq, tlt, vix, irx, regime]
+    [S, B] float32)."""
+    T = sim_days + buffer_days
+    gdt = model.regime.p_stay.dtype
+    sc = start_conditions(model, run_key, trial_ids, buffer_days,
+                          random_start_method, anchors, gdt)
+    regime = simulate_regime_paths_spell(
+        model, rng.stream(rng.trial_key(run_key, trial_ids), rng.REGIME),
+        sc.start_regime, T, max_spells=max_spells, out_dtype=torch.float32)
+    seed_words = [int(v) for v in run_key.tolist()]
+    signs = torch.where(antithetic, -1.0, 1.0).to(torch.float32)
+    ids32 = trial_ids.to(torch.int32)
+    x0, x1, x2, vix_full, irx_full = joint_generate(
+        tparams.pack_joint_params(model),
+        model.joint.chi_cheb.to(torch.float32), regime, ids32, signs,
+        seed_words)
+    biases = []
+    if moment_matching:
+        theo = model.joint.theo_mean.to(torch.float32)
+        biases = [(theo[c] - xc.mean(dim=0)) * 0.1
+                  for c, xc in enumerate((x0, x1, x2))]
+    chans = window_series([x0, x1, x2, vix_full, irx_full, regime],
+                          sc.start_offset, sim_days, biases)
+    return sc, ids32, seed_words, chans
+
+
+class PathOutputs(NamedTuple):
+    """The general path's outputs (path_engine.PathOutputs), ``[S, B]``
+    per-day series and ``[B]`` per-trial fields."""
+    etf_ret: torch.Tensor       # [A, S, B] repaired net ETF returns
+    tlt_ret: torch.Tensor
+    spy_ret: torch.Tensor       # jump-adjusted
+    qqq_ret: torch.Tensor
+    vix: torch.Tensor
+    regime: torch.Tensor        # int32
+    cash_ret: torch.Tensor
+    risk_free: torch.Tensor
+    start_offset: torch.Tensor
+    start_regime: torch.Tensor
+    initial_vix: torch.Tensor
+    jump_days: torch.Tensor     # int32
+    liq_mean: torch.Tensor
+    credit_mean: torch.Tensor
+    valid: torch.Tensor         # bool
+    repaired: torch.Tensor
+    path_finite: torch.Tensor
+    vix_ok: torch.Tensor
+
+
+def finish_path(etf_ret, tlt, spy, qqq, vix, regime, cash_ret, risk_free,
+                sc: StartConditions, jump_days, liq_mean,
+                cred_mean) -> PathOutputs:
+    """Validity checks, the repair pass (bound and zero non-finite
+    returns; VIX is not repaired) and PathOutputs assembly (_finish_path)."""
+    finite_pre = (torch.isfinite(etf_ret).all(dim=0).all(dim=0)
+                  & torch.isfinite(tlt).all(dim=0)
+                  & torch.isfinite(vix).all(dim=0))
+    vix_ok = (torch.isfinite(vix).all(dim=0)
+              & (vix.amin(dim=0) >= 5.0) & (vix.amax(dim=0) <= 120.0))
+    etf_ret = torch.clamp(torch.where(torch.isfinite(etf_ret), etf_ret, 0.0),
+                          -0.999, 10.0)
+    tlt = torch.clamp(torch.where(torch.isfinite(tlt), tlt, 0.0), -0.999,
+                      10.0)
+    return PathOutputs(
+        etf_ret=etf_ret, tlt_ret=tlt, spy_ret=spy, qqq_ret=qqq, vix=vix,
+        regime=regime, cash_ret=cash_ret, risk_free=risk_free,
+        start_offset=sc.start_offset, start_regime=sc.start_regime,
+        initial_vix=sc.initial_vix, jump_days=jump_days, liq_mean=liq_mean,
+        credit_mean=cred_mean, valid=vix_ok, repaired=~(finite_pre & vix_ok),
+        path_finite=finite_pre, vix_ok=vix_ok)
+
+
+def generate_paths_batched(model, run_key, trial_ids, antithetic,
+                           sim_days: int, buffer_days: int = 0,
+                           random_start_method: str = "offset",
+                           moment_matching: bool = True, anchors=None,
+                           max_spells: int | None = None) -> PathOutputs:
+    """The general [S, B] path (institutional_v1): ``windowed_chain``, then
+    kernel K5 (stress, funding, leverage and tracking error for all six
+    assets) and ``finish_path``."""
+    sc, ids32, seed_words, chans = windowed_chain(
+        model, run_key, trial_ids, antithetic, sim_days, buffer_days,
+        random_start_method, anchors, moment_matching, max_spells)
+    _, _, tlt, vix, irx, regime = chans
+    etf, spy_a, qqq_a, cash, jc, ls, cs = compose_generate(
+        tparams.pack_stress_params(model), tparams.pack_asset_params(model),
+        ids32, seed_words, *chans)
+    risk_free = torch.clamp(irx, 0.0, 20.0) / 100.0
+    return finish_path(etf, tlt, spy_a, qqq_a, vix, regime.to(torch.int32),
+                       cash, risk_free, sc, jc.to(torch.int32),
+                       ls / sim_days, cs / sim_days)

@@ -2,10 +2,9 @@
 
 Port of ``letf_tpu/ops/slab_chunk.py::slab_chunk_summaries``. The chain:
 
-  start conditions + regime spells (glue, ops/path_batched.py)
-  -> K1 joint generation            (ops/joint.py, csrc/joint.cu)
-  -> K2 random-start window + moment-matching bias
-                                    (ops/window.py, csrc/window.cu)
+  start conditions + regime spells, K1 joint generation (csrc/joint.cu),
+  moment matching and the K2 random-start window (csrc/window.cu) --
+  ops/path_batched.windowed_chain, shared with the general path
   -> K3 compose + signals + 19 strategies
                                     (ops/compose_strategies.py,
                                      csrc/compose_strategies.cu)
@@ -18,14 +17,9 @@ Returns the 13-key summary dict of ``_mc_chunk_body``.
 
 from __future__ import annotations
 
-import torch
-
 from letf_tpu_torch.models import params as tparams
 from letf_tpu_torch.ops import path_batched as pb
-from letf_tpu_torch.ops import rng
 from letf_tpu_torch.ops.compose_strategies import compose_strategies
-from letf_tpu_torch.ops.joint import joint_generate
-from letf_tpu_torch.ops.window import window_offsets
 
 
 def slab_chunk_summaries(model, run_key, trial_ids, antithetic,
@@ -39,39 +33,9 @@ def slab_chunk_summaries(model, run_key, trial_ids, antithetic,
     torch SimModel (models/params.from_numpy) on that device, in the glue
     dtype; ``run_key``: a threefry key (ops/rng.key); ``trial_ids`` [B]
     base ids (antithetic pairs share one); ``antithetic`` [B] bool."""
-    T = sim_days + buffer_days
-    gdt = model.regime.p_stay.dtype
-    sc = pb.start_conditions(model, run_key, trial_ids, buffer_days,
-                             random_start_method, anchors, gdt)
-    regime = pb.simulate_regime_paths_spell(
-        model, rng.stream(rng.trial_key(run_key, trial_ids), rng.REGIME),
-        sc.start_regime, T, max_spells=max_spells, out_dtype=torch.float32)
-
-    seed_words = [int(v) for v in run_key.tolist()]
-    signs = torch.where(antithetic, -1.0, 1.0).to(torch.float32)
-    ids32 = trial_ids.to(torch.int32)
-    x0, x1, x2, vix_full, irx_full = joint_generate(
-        tparams.pack_joint_params(model),
-        model.joint.chi_cheb.to(torch.float32), regime, ids32, signs,
-        seed_words)
-    # Moment matching: a per-trial bias 0.1 * (theoretical mean - the
-    # trial's mean over all T days), added at the window's store.
-    biases = [None, None, None]
-    if moment_matching:
-        theo = model.joint.theo_mean.to(torch.float32)
-        biases = [(theo[c] - xc.mean(dim=0)) * 0.1
-                  for c, xc in enumerate((x0, x1, x2))]
-
-    if buffer_days > 0:
-        chans = window_offsets(
-            [x0, x1, x2, vix_full, irx_full, regime],
-            sc.start_offset.to(torch.int32), sim_days,
-            biases=biases + [None, None, None])
-    else:
-        chans = [c if b is None else c + b[None, :]
-                 for c, b in zip((x0, x1, x2), biases)]
-        chans += [vix_full, irx_full, regime]
-    del x0, x1, x2, vix_full, irx_full, regime
+    sc, ids32, seed_words, chans = pb.windowed_chain(
+        model, run_key, trial_ids, antithetic, sim_days, buffer_days,
+        random_start_method, anchors, moment_matching, max_spells)
 
     (fw, nt, mdd, path_finite, jc, ls, cs, vix_min, vix_max,
      regime_high) = compose_strategies(

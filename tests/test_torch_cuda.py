@@ -94,3 +94,88 @@ def test_compose_strategies_kernel_matches_plain(dev, with_cashflows,
     k3.check_parity(dict(zip(k3.OUTPUTS, got)), dict(zip(k3.OUTPUTS, ref)),
                     exact=("path_finite", "vix_min", "vix_max",
                            "regime_high_days"))
+
+
+def test_compose_kernel_matches_plain(dev):
+    """K5 within rtol 1e-5 / atol 1e-6 of its plain version on the card
+    (torch divides by a Python scalar as a multiply by its reciprocal)."""
+    from letf_tpu_torch.ops import compose
+
+    model = default_sim_model()
+    rs = np.random.default_rng(6)
+    spy = 0.0003 + 0.012 * rs.standard_t(5, (S, B))
+    vix = np.clip(20.0 + 8.0 * rs.standard_normal((S, B)), 9.0, 80.0)
+    regime = np.cumsum(rs.random((S, B)) < 0.05, 0) % 2
+    chans = [torch.as_tensor(c, dtype=torch.float32, device=dev)
+             for c in (spy, 1.2 * spy, -0.2 * spy, vix,
+                       np.full((S, B), 3.0), regime)]
+    args = (tparams.pack_stress_params(model).to(dev),
+            tparams.pack_asset_params(model).to(dev),
+            (torch.arange(B, device=dev) // 2).to(torch.int32), [9, 11],
+            *chans)
+    n0 = compose.LAUNCHES
+    got = compose.compose_generate(*args)
+    assert compose.LAUNCHES == n0 + 1
+    ref = compose.compose_plain(*args)
+    for a, b in zip(got, ref):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("kind", ["merge", "valley"])
+def test_sort_bridge_kernel_bitwise(dev, kind):
+    from letf_tpu_torch.ops import sort_bridge as k7
+
+    g = torch.Generator(device=dev).manual_seed(3)
+    R, half = 300, 700
+    N = 2 * half
+    key = torch.round(torch.randn((N, R), generator=g, device=dev).abs()
+                      * 4) / 4
+    key[half:] = torch.sort(key[half:], dim=0).values
+    if kind == "merge":
+        key[:half] = torch.sort(key[:half], dim=0).values
+    pos = torch.arange(N, device=dev, dtype=torch.int32)
+    sec = torch.where(pos >= half, pos | (1 << 24), pos)[:, None].expand(
+        N, R).contiguous()
+    pays = tuple(torch.randn((N, R), generator=g, device=dev)
+                 for _ in range(4))
+    n0 = k7.LAUNCHES
+    got = k7.sort_bridge(key, sec, pays, kind=kind)
+    assert k7.LAUNCHES == n0 + 1
+    for a, b in zip(got, k7.sort_bridge_plain(key, sec, pays)):
+        assert torch.equal(a, b)
+
+
+def test_wash_kernel_bitwise(dev):
+    from letf_tpu_torch.ops import wash
+
+    g = torch.Generator(device=dev).manual_seed(4)
+
+    def sparse(p, scale):
+        u = torch.rand((S, B), generator=g, device=dev)
+        return torch.where(u < p, torch.rand((S, B), generator=g,
+                                             device=dev) * scale, 0.0)
+
+    buy, sell = sparse(0.25, 6.0), sparse(0.15, 8.0)
+    loss = torch.where(sell > 0, sparse(0.5, 100.0), 0.0)
+    n0 = wash.LAUNCHES
+    got = wash.wash_matching(loss, sell, buy)
+    assert wash.LAUNCHES == n0 + 1
+    for a, b in zip(got, wash.wash_plain(loss, sell, buy)):
+        assert torch.equal(a, b)
+
+
+def test_emitting_engine_refuses_without_emission_on_the_card(dev):
+    """The non-emitting strategies are kernel K4 (ROADMAP 2.4), not yet
+    ported: the plain loop never stands in for it on the card."""
+    from letf_tpu_torch.ops import rng
+    from letf_tpu_torch.ops.path_batched import generate_paths_batched
+    from letf_tpu_torch.parallel.mc_runner import from_numpy
+    from letf_tpu_torch.strategies.engine import run_strategies_batch
+    from letf_tpu_torch.strategies.signals import compute_signals
+
+    mt = from_numpy(default_sim_model(), dev, torch.float32)
+    rows = torch.arange(64, device=dev)
+    path = generate_paths_batched(mt, rng.key(1, dev), rows // 2,
+                                  rows % 2 == 1, sim_days=S)
+    with pytest.raises(NotImplementedError, match="2.4"):
+        run_strategies_batch(path, compute_signals(path), emit_trades=False)

@@ -98,3 +98,44 @@ def test_start_offsets_and_conditions_exact():
         np.testing.assert_array_equal(got.initial_vix.numpy(),
                                       np.asarray(ref.initial_vix))
     assert cfg.N_REGIMES == 2
+
+
+def test_unit_uniform_spell_outlasts_the_horizon(monkeypatch):
+    """A counter uniform of exactly 1.0 (float32 rounds 1 - 2**-25 up,
+    once in 2**24 draws; ~18 times in a 1,048,576-trial 30-year report)
+    gives an infinite geometric dwell. The reference's spell-end buckets
+    ignore the overflowed ends, so that spell holds to the horizon; the
+    port once scattered them at negative rows (a device-side assert on the
+    card). Both packages' expansions are forced to 1.0 on one spell of
+    some trials. (A second infinite dwell in the same trial, ~3e-10 per
+    trial, brings the reference's wrapping int32 spell ends back into
+    range; the port holds the spell.)"""
+    model = default_sim_model()
+    total_days, n = 2520, 256
+    ids = np.arange(n)
+    start = (ids % 2).astype(np.int32)
+    hit = np.zeros((n, 64), bool)
+    hit[0::3, 0] = hit[1::6, 2] = hit[2::6, 9] = True
+    jax_cu, port_cu = jpb.counter_uniforms, rng.counter_uniforms
+
+    def jax_unit(keys, k):
+        return jnp.where(jnp.asarray(hit[:, :k]), 1.0, jax_cu(keys, k))
+
+    def port_unit(keys, k):
+        u = port_cu(keys, k)
+        return torch.where(torch.as_tensor(hit[:, :k]), 1.0, u)
+
+    monkeypatch.setattr(jpb, "counter_uniforms", jax_unit)
+    monkeypatch.setattr(rng, "counter_uniforms", port_unit)
+    _, rk = jax_keys(5, ids)
+    ref = np.asarray(jpb.simulate_regime_paths_spell(
+        jax.tree.map(jnp.asarray, model), rk, jnp.asarray(start),
+        total_days, max_spells=64))
+    got = tpb.simulate_regime_paths_spell(
+        from_numpy(model, "cpu", torch.float64),
+        rng.stream(rng.trial_key(rng.key(5), torch.as_tensor(ids)),
+                   rng.REGIME),
+        torch.from_numpy(start), total_days, max_spells=64)
+    np.testing.assert_array_equal(got.numpy().T, ref)
+    # A first spell that never ends: the start regime holds throughout.
+    assert (got.numpy().T[::3] == start[::3, None]).all()

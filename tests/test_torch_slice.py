@@ -142,11 +142,27 @@ def test_run_monte_carlo_chunking_is_bitwise(model, monkeypatch):
 
 
 def test_unported_modes_raise(model):
-    for kw in (dict(tax_mode="sampled"), dict(tax_mode="exact_all"),
-               dict(tax_mode="none", engine_mode="parametric")):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """exact_all and the per-trial engine modes raise naming their ROADMAP
+    items; the sampled default runs (tests/test_torch_sampled_report.py);
+    trade emission is emit_trade_lists', not a run_monte_carlo argument, as
+    in the JAX package; the plain strategy loop never stands in for kernel
+    K4 on the card."""
+    import types
+
+    from letf_tpu_torch.strategies.engine import run_strategies_batch
+
+    for kw, item in ((dict(tax_mode="exact_all"), "item 13"),
+                     (dict(tax_mode="none", engine_mode="parametric"),
+                      "item 11"),
+                     (dict(tax_mode="none", engine_mode="legacy_hybrid"),
+                      "item 15")):
+        with pytest.raises(NotImplementedError, match=f"ROADMAP.*{item}"):
             mc_runner.monte_carlo_report(model, 1, num_simulations=8,
                                          device="cpu", **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(TypeError, match="emit_trades"):
         mc_runner.run_monte_carlo(model, 1, num_simulations=8,
                                   emit_trades=True, device="cpu")
+    on_card = types.SimpleNamespace(
+        etf_ret=types.SimpleNamespace(device=torch.device("cuda")))
+    with pytest.raises(NotImplementedError, match="ROADMAP.*2.4"):
+        run_strategies_batch(on_card, None, emit_trades=False)

@@ -53,3 +53,28 @@ def test_window_plain_bitwise(S):
                                   bits(gather + bias_b[None, :]))
     np.testing.assert_array_equal(bits(got_b.numpy()),
                                   bits(slab_to_tb(ref_b)))
+
+
+def test_general_path_window_series_bitwise():
+    """Kernel K2' on the general path: ``path_batched.window_series`` on
+    [T, B] channels equals ``window_offsets_pallas`` ([C, T, B], interpret
+    mode) bit for bit, NaN payload included (test_path_batched.py:109's
+    shapes), and skips the window when T == S."""
+    from letf_tpu.ops.pallas_window import window_offsets_pallas
+    from letf_tpu_torch.ops.path_batched import window_series
+
+    T, S, C, B = 380, 256, 6, 256
+    x = jax.random.normal(jax.random.key(0), (C, T, B), jnp.float32)
+    x = x.at[0, 3, 7].set(jnp.nan)
+    offs = np.random.default_rng(1).integers(0, T - S + 1, B).astype(
+        np.int32)
+    offs[0], offs[1] = 0, T - S
+    ref = np.asarray(window_offsets_pallas(x, jnp.asarray(offs), S,
+                                           interpret=True))
+    xt = [torch.as_tensor(np.array(x[c])) for c in range(C)]
+    got = window_series(xt, torch.as_tensor(offs), S)
+    for c in range(C):
+        assert got[c].numpy().view(np.int32).tobytes() == \
+            ref[c].view(np.int32).tobytes()
+    same = window_series(xt, torch.zeros(B, dtype=torch.int32), T)
+    assert all(a is b for a, b in zip(same, xt))
