@@ -7,13 +7,12 @@
 // (pallas_strategies.py:321-966) in meaning, line for line: stress + crisis
 // jumps + funding + leverage/expense/financing + tracking error with counter
 // draws from streams 16+ and 32+ (compose_day.cuh, shared with kernel K5;
-// TE chains for the four consumed assets only) and the per-day repair;
-// ring-buffer signals with exact add/subtract
-// window sums, pandas min_periods NaN rules and shift(1) reads; the 19
-// strategies with the reference quirks S7/S8/S9/S19; the cashflow schedule
-// and ruin floor; the validity accumulators. Day 0 is a separate template
-// instance (the reference's static day-0 specialisation). The plain PyTorch
-// version is ops/compose_strategies.py::compose_strategies_plain.
+// TE chains for the four consumed assets only) and the per-day repair; the
+// ring-buffer signals and the 19 strategies with the cashflow schedule and
+// ruin floor (strategies_day.cuh, shared with kernel K4); the validity
+// accumulators. Day 0 is a separate template instance (the reference's
+// static day-0 specialisation). The plain PyTorch version is
+// ops/compose_strategies.py::compose_strategies_plain.
 //
 // What bounds it on the H100: a long serial per-trial recurrence (~2,000
 // flops and 13 transcendentals a day) with ~160 floats of live state,
@@ -27,100 +26,48 @@
 // (more trials per SM, splitting the draws out) is later work.
 
 #include "compose_day.cuh"
+#include "strategies_day.cuh"
 
 namespace {
 
 using namespace compose_day;
+using namespace strategies_day;
 
-constexpr int NS = 19;
-constexpr int NSIG = 16;
-constexpr int RW_X = 64, RW_SPY = 128, RW_P = 256, RW_S20 = 8;
-constexpr int R_X = 0, R_SPY = RW_X, R_P = RW_X + RW_SPY,
-              R_S20 = RW_X + RW_SPY + RW_P;
-constexpr int RING_ROWS = R_S20 + RW_S20;
-constexpr float SPREAD = 0.0003f, TURNOVER_EPS = 1e-4f;
-constexpr float SQ252 = 15.874507866387544f;
-constexpr float W6A = 0.6f, W6B = 0.4f;
-constexpr float FLT_MIN_NORMAL = 1.17549435082228750797e-38f;
-
-// Equity below float32's smallest normal is ruin (0), as in the reference,
-// which runs with subnormals flushed to zero: an equity that underflows
-// there stays 0, where IEEE arithmetic would keep a subnormal equity that
-// can recover. NaN passes through.
-__device__ __forceinline__ float ruin_floor(float e) {
-  return e < FLT_MIN_NORMAL ? 0.0f : e;
-}
-
-// Constants table (ops/compose_strategies.py::kernel_consts).
-enum { K_IC, K_SP0, K_SPD, K_RCPD_LEV, K_RCPD, K_L6A, K_L6B, K_IC_W6A,
-       K_IC_W6B, K_ONE_M_EMA, K_EMA, K_IDX_TQQQ, K_IDX_SPY, K_IDX_SSO,
+// Constants table (ops/compose_strategies.py::kernel_consts): the strategy
+// constants (strategies_day.cuh), then the composition's.
+enum { K_ONE_M_EMA = NK_STRAT, K_EMA, K_IDX_TQQQ, K_IDX_SPY, K_IDX_SSO,
        K_IDX_TMF, K_UND, K_DF = K_UND + NA, K_M2DF = K_DF + NA,
        NK = K_M2DF + NA };
-// shift(1) signals, in pallas_strategies.CHANNELS[7:] order.
-enum { G_PRICE, G_STD20_MP20, G_DSTD20_MP20, G_STD5, G_STD10, G_STD20,
-       G_STD60, G_DSTD20, G_SKEW60, G_MEAN60, G_VOLMOM5, G_SUM126,
-       G_SMA200_MP1, G_SMA200, G_SMA100_MP1, G_RSI14 };
-// Running window sums.
-enum { S1_5, S2_5, S1_10, S2_10, S1_20, S2_20, S1_60, S2_60, S3_60, N1_20,
-       N2_20, SPY1_126, P1_100, P1_200, G1_14, L1_14, NSUM };
 
 struct Tables {
   float spa[NSP], spd[NSP], ap[NAP * NA], k[NK];
 };
 
-struct State {
-  float eq[NS], pa[NS], tr[NS], rm[NS], dd[NS];
-  float pos4, pos5, pos8, s6p0, s6p1, s6e0, s6e1, pvix;
-  float psig[NSIG], sum[NSUM];
+struct ComposeState {
+  float sum[NSUM];
   float liq, cred, te[4], bias[4];
   float jc, ls, cs, fin, vmin, vmax, rhi;
 };
 
-struct Ctx {
-  const Tables* tb;
-  const float* cf;          // [S] or nullptr
-  float* rings;             // [RING_ROWS, B]
-  int b, B;
-  uint32_t lane_key, s1;
-  bool apply_costs;
-};
-
-__device__ __forceinline__ float asel(float m, float a, float b) {
-  return m * a + (1.0f - m) * b;
-}
-__device__ __forceinline__ float bsel(float m, float a, float b) {
-  return m != 0.0f ? a : b;
-}
-__device__ __forceinline__ float guard(float v, float eps, float def,
-                                       float* m = nullptr) {
-  const float mm = f01(v >= eps);
-  if (m) *m = mm;
-  return bsel(mm, v, def);
-}
 template <bool FIRST>
-__device__ __forceinline__ void day(State& st, const Ctx& c, int t,
+__device__ __forceinline__ void day(StratState& st, ComposeState& cs,
+                                    const Tables& T, const Rings& rg,
+                                    const float* cf, uint32_t lane_key,
+                                    uint32_t s1, bool apply_costs, int t,
                                     float spy_w, float qqq_w, float tlt_w,
                                     float vix, float irx, float reg) {
-  const Tables& T = *c.tb;
   const float* K = T.k;
-  const float NaN = __int_as_float(0x7fc00000);
-  float* rings = c.rings;
-  const int B = c.B, b = c.b;
-  auto ring = [&](int base, int W, int lag) -> float& {
-    return rings[(size_t)(base + ((t - lag) & (W - 1))) * B + b];
-  };
-
-  st.vmin = jmin(st.vmin, vix);
-  st.vmax = jmax(st.vmax, vix);
-  st.rhi = st.rhi + reg;
+  cs.vmin = jmin(cs.vmin, vix);
+  cs.vmax = jmax(cs.vmax, vix);
+  cs.rhi = cs.rhi + reg;
 
   // ---- stress + crisis jumps + funding (compose_day.cuh) ----
-  const uint32_t dk = letf_day_key(c.lane_key, (uint32_t)t, c.s1);
-  const DayStress ds = stress_day<FIRST>(T.spa, T.spd, dk, st.liq, st.cred,
+  const uint32_t dk = letf_day_key(lane_key, (uint32_t)t, s1);
+  const DayStress ds = stress_day<FIRST>(T.spa, T.spd, dk, cs.liq, cs.cred,
                                          spy_w, qqq_w, vix, irx, reg);
-  st.jc = st.jc + ds.jump_on;
-  st.ls = st.ls + ds.liq_n;
-  st.cs = st.cs + ds.cred_n;
+  cs.jc = cs.jc + ds.jump_on;
+  cs.ls = cs.ls + ds.liq_n;
+  cs.cs = cs.cs + ds.cred_n;
 
   // ---- leverage / costs / tracking error: TQQQ, SPY, SSO, TMF ----
   float fin_day = f01(isfinite(tlt_w)) * f01(isfinite(vix));
@@ -132,404 +79,20 @@ __device__ __forceinline__ void day(State& st, const Ctx& c, int t,
     const float src = ui == 0 ? ds.spy_a : (ui == 1 ? ds.qqq_a : tlt_w);
     const float e = asset_day<FIRST>(T.ap, a, src, ds, dk, K[K_DF + a],
                                      K[K_M2DF + a], K[K_EMA],
-                                     K[K_ONE_M_EMA], st.te[k], st.bias[k]);
+                                     K[K_ONE_M_EMA], cs.te[k], cs.bias[k]);
     const float fin_a = f01(isfinite(e));
     fin_day = fin_day * fin_a;
     etf[k] = jclip(bsel(fin_a, e, 0.0f), -0.999f, 10.0f);
   }
-  st.fin = st.fin * fin_day;
-  const float r_tqqq = etf[0], r_spy = etf[1], r_sso = etf[2],
-              r_tmf = etf[3];
+  cs.fin = cs.fin * fin_day;
   const float cashr = g2(T.spa, T.spd, CASH_RATE, reg) / 252.0f;
-  const float vix_prev = st.pvix;
-  const float pp = st.psig[G_PRICE];                 // NaN on day 0
 
-  // ---- rolling signals (today's values) ----
-  const float price = FIRST ? 100.0f * (1.0f + r_spy)
-                            : st.psig[G_PRICE] * (1.0f + r_spy);
-  const float x = r_tqqq;
-  const float neg = jmin(x, 0.0f);
-  const float x5 = ring(R_X, RW_X, 5), x10 = ring(R_X, RW_X, 10);
-  const float x20 = ring(R_X, RW_X, 20), x60 = ring(R_X, RW_X, 60);
-  const float spy126 = ring(R_SPY, RW_SPY, 126);
-  const float p100 = ring(R_P, RW_P, 100), p200 = ring(R_P, RW_P, 200);
-  const float p14 = ring(R_P, RW_P, 14), p15 = ring(R_P, RW_P, 15);
-  const float s20l5 = ring(R_S20, RW_S20, 5);
-  auto leave = [&](int lag) { return t >= lag ? 1.0f : 0.0f; };
-  auto upd = [&](int i, float add, float sub, int lag) {
-    st.sum[i] = st.sum[i] + add - leave(lag) * sub;
-    return st.sum[i];
-  };
-  const float s1_5 = upd(S1_5, x, x5, 5);
-  const float s2_5 = upd(S2_5, x * x, x5 * x5, 5);
-  const float s1_10 = upd(S1_10, x, x10, 10);
-  const float s2_10 = upd(S2_10, x * x, x10 * x10, 10);
-  const float s1_20 = upd(S1_20, x, x20, 20);
-  const float s2_20 = upd(S2_20, x * x, x20 * x20, 20);
-  const float s1_60 = upd(S1_60, x, x60, 60);
-  const float s2_60 = upd(S2_60, x * x, x60 * x60, 60);
-  const float s3_60 = upd(S3_60, x * x * x, x60 * x60 * x60, 60);
-  const float ng20 = jmin(x20, 0.0f);
-  const float n1_20 = upd(N1_20, neg, ng20, 20);
-  const float n2_20 = upd(N2_20, neg * neg, ng20 * ng20, 20);
-  const float spy1_126 = upd(SPY1_126, r_spy, spy126, 126);
-  const float p1_100 = upd(P1_100, price, p100, 100);
-  const float p1_200 = upd(P1_200, price, p200, 200);
-  const float delta = FIRST ? 0.0f : price - st.psig[G_PRICE];
-  const float sub_d = leave(15) * (p14 - p15);
-  const float g1_14 = upd(G1_14, jmax(delta, 0.0f), jmax(sub_d, 0.0f), 0);
-  const float l1_14 = upd(L1_14, jmax(-delta, 0.0f), jmax(-sub_d, 0.0f), 0);
-
-  const float tn = (float)t + 1.0f;
-  auto nn = [&](float w) { return fminf(tn, w); };
-  auto gate = [&](int min_t, float v) { return t >= min_t ? v : NaN; };
-  auto wstd = [&](float s1, float s2, float w, int min_t) {
-    const float n = nn(w);
-    const float mean = s1 / n;
-    const float var = jmax(s2 - n * mean * mean, 0.0f) / fmaxf(n - 1.0f, 1.0f);
-    return gate(min_t, sqrtf(var) * SQ252);
-  };
+  // ---- rolling signals, then the strategies (strategies_day.cuh) ----
   float cur[NSIG];
-  cur[G_PRICE] = price;
-  cur[G_STD5] = wstd(s1_5, s2_5, 5.0f, 1);
-  cur[G_STD10] = wstd(s1_10, s2_10, 10.0f, 1);
-  cur[G_STD20] = wstd(s1_20, s2_20, 20.0f, 1);
-  cur[G_STD60] = wstd(s1_60, s2_60, 60.0f, 1);
-  cur[G_STD20_MP20] = wstd(s1_20, s2_20, 20.0f, 19);
-  cur[G_DSTD20] = wstd(n1_20, n2_20, 20.0f, 1);
-  cur[G_DSTD20_MP20] = wstd(n1_20, n2_20, 20.0f, 19);
-  {
-    const float n60 = nn(60.0f);
-    const float mean60 = s1_60 / n60;
-    cur[G_MEAN60] = mean60 * 252.0f;
-    const float m2 = jmax(s2_60 - n60 * mean60 * mean60, 0.0f);
-    const float m3 = s3_60 - 3.0f * mean60 * s2_60
-                     + 2.0f * n60 * mean60 * mean60 * mean60;
-    const float var60 = m2 / fmaxf(n60 - 1.0f, 1.0f);
-    const float sd60 = sqrtf(var60);
-    const float denom = fmaxf(n60 - 1.0f, 1.0f) * fmaxf(n60 - 2.0f, 1.0f)
-                        * sd60 * sd60 * sd60;
-    const float skew_ok = (t >= 2 ? 1.0f : 0.0f) * f01(sd60 > 0.0f);
-    cur[G_SKEW60] = bsel(skew_ok, n60 * m3 / jmax(denom, 1e-37f), NaN);
-  }
-  cur[G_VOLMOM5] = gate(5, cur[G_STD20] / s20l5 - 1.0f);
-  cur[G_SUM126] = spy1_126;
-  cur[G_SMA200_MP1] = p1_200 / nn(200.0f);
-  cur[G_SMA200] = gate(199, p1_200 / nn(200.0f));
-  cur[G_SMA100_MP1] = p1_100 / nn(100.0f);
-  {
-    const float rs = g1_14 / l1_14;
-    cur[G_RSI14] = gate(13, 100.0f - 100.0f / (1.0f + rs));
-  }
-  const float* prev = st.psig;
-
-  float rets[NS], traded[NS], pa_new[NS];
-  // ---- S1-S3 benchmarks ----
-  rets[0] = r_tqqq; rets[1] = r_spy; rets[2] = r_sso;
-#pragma unroll
-  for (int i = 0; i < 3; ++i) {
-    traded[i] = 0.0f;
-    pa_new[i] = st.pa[i];
-  }
-
-  // ---- S4/S5 SMA state machines ----
-  float new4, new5, flip4, flip5;
-  if (FIRST) {
-    new4 = st.pos4; new5 = st.pos5; flip4 = 0.0f; flip5 = 0.0f;
-  } else {
-    const float sma1 = prev[G_SMA200_MP1];
-    const float buy4 = f01(pp >= sma1), sell4 = f01(pp < sma1);
-    new4 = asel(f01(st.pos4 == 1.0f), 1.0f - sell4, buy4);
-    flip4 = f01(new4 != st.pos4);
-    const float thresh5 = sma1 * (float)(1.0 - 0.02);
-    const float buy5 = f01(pp >= thresh5), sell5 = f01(pp < thresh5);
-    new5 = asel(f01(st.pos5 == 1.0f), 1.0f - sell5, buy5);
-    flip5 = f01(new5 != st.pos5);
-  }
-  const float sma_cost = (K[K_SP0] + K[K_SPD] * reg) / 10000.0f
-                         + K[K_RCPD_LEV] * fabsf(r_tqqq);
-  {
-    const float newp[2] = {new4, new5}, flip[2] = {flip4, flip5};
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      float ret_s = asel(newp[i], r_tqqq, cashr);
-      if (c.apply_costs) ret_s = ret_s - flip[i] * sma_cost;
-      rets[3 + i] = ret_s;
-      traded[3 + i] = flip[i];
-      pa_new[3 + i] = st.pa[3 + i];
-    }
-  }
-
-  // ---- S6 60/40 TQQQ/TMF with leverage-drift turnover ----
-  const float L6A = K[K_L6A], L6B = K[K_L6B];
-  const float pg0 = st.s6p0 * (1.0f + r_tqqq);
-  const float pg1 = st.s6p1 * (1.0f + r_tmf);
-  const float u6a = r_tqqq / L6A, u6b = r_tmf / L6B;
-  const float den_a = 1.0f + L6A * u6a, den_b = 1.0f + L6B * u6b;
-  const float ma = f01(fabsf(den_a) > 0.01f), mb = f01(fabsf(den_b) > 0.01f);
-  const float emb0 = asel(ma, L6A * (1.0f + u6a) / bsel(ma, den_a, 1.0f), L6A);
-  const float emb1 = asel(mb, L6B * (1.0f + u6b) / bsel(mb, den_b, 1.0f), L6B);
-  const float total6 = pg0 + pg1;
-  const float rebf = (t % 21 == 0 && t > 0) ? 1.0f : 0.0f;
-  const float inv_t6 = 1.0f / jmax(total6, 1e-30f);
-  const float cw0 = pg0 * inv_t6, cw1 = pg1 * inv_t6;
-  const float w_turn = fabsf(cw0 - W6A) + fabsf(cw1 - W6B);
-  const float lev_turn = fabsf(emb0 - L6A) / L6A * cw0
-                         + fabsf(emb1 - L6B) / L6B * cw1;
-  const float tot_turn = w_turn + lev_turn;
-  const float do_cost = c.apply_costs ? rebf * f01(tot_turn > 0.01f) : 0.0f;
-  const float total_after = asel(do_cost, total6 * (1.0f - tot_turn * K[K_RCPD]),
-                                 total6);
-  float s6p0n, s6p1n, s6e0n, s6e1n, equity6;
-  if (FIRST) {
-    s6p0n = st.s6p0; s6p1n = st.s6p1; s6e0n = st.s6e0; s6e1n = st.s6e1;
-    equity6 = st.eq[5];
-    traded[5] = 0.0f;
-  } else {
-    s6p0n = asel(rebf, total_after * W6A, pg0);
-    s6p1n = asel(rebf, total_after * W6B, pg1);
-    s6e0n = asel(rebf, L6A, emb0);
-    s6e1n = asel(rebf, L6B, emb1);
-    equity6 = total_after;
-    traded[5] = rebf;
-  }
-  rets[5] = 0.0f;
-  pa_new[5] = st.pa[5];
-
-  auto vol_family = [&](int i, float alloc, bool include_cash, float& ret,
-                        float& trm) {
-    const float turnover = fabsf(alloc - st.pa[i]);
-    trm = f01(turnover > TURNOVER_EPS);
-    ret = include_cash ? alloc * r_tqqq + (1.0f - alloc) * cashr
-                       : alloc * r_tqqq;
-    if (c.apply_costs) ret = ret - trm * turnover * SPREAD;
-  };
-
-  // ---- S7 vol targeting 20% (no cash on the idle fraction) ----
-  {
-    float m7;
-    const float v7 = guard(cur[G_STD20_MP20], 0.01f, 1.0f, &m7);
-    const float pos7 = asel(m7, jclip(0.20f / v7, 0.2f, 2.0f), 1.0f);
-    vol_family(6, pos7, false, rets[6], traded[6]);
-    pa_new[6] = pos7;
-  }
-
-  // ---- S8 composite regime (TQQQ / SPY / cash; no costs) ----
-  float target8;
-  if (FIRST) {
-    target8 = st.pos8;
-    rets[7] = 0.0f;
-    traded[7] = 0.0f;
-  } else {
-    const float rsi8 = prev[G_RSI14];
-    const float sc = f01(pp > prev[G_SMA200]) + f01((rsi8 > 40.0f) && (rsi8 < 80.0f))
-                     + f01(vix_prev < 25.0f);
-    target8 = asel(f01(sc == 3.0f), 2.0f, asel(f01(sc == 2.0f), 1.0f, 0.0f));
-    rets[7] = asel(f01(target8 == 2.0f), r_tqqq,
-                   asel(f01(target8 == 1.0f), r_spy, cashr));
-    traded[7] = f01(target8 != st.pos8);
-  }
-  pa_new[7] = st.pa[7];
-
-  // ---- S9 adaptive vol target (skips NaN days entirely) ----
-  {
-    const float v9r = prev[G_STD20_MP20], sma9 = prev[G_SMA200];
-    const float ok9 = f01(v9r >= 0.001f) * f01(!isnan(sma9));
-    const float target_v9 = asel(f01(pp > sma9), 0.35f, 0.12f);
-    const float v9 = bsel(ok9, v9r, 1.0f);
-    const float alloc9 = asel(ok9, jclip(target_v9 / v9, 0.0f, 1.0f), st.pa[8]);
-    float ret9, tr9;
-    vol_family(8, alloc9, true, ret9, tr9);
-    rets[8] = ret9 * ok9;
-    traded[8] = tr9 * ok9;
-    pa_new[8] = alloc9;
-  }
-
-  // ---- S10 Sortino (downside vol target) ----
-  {
-    float m10;
-    const float dv10 = guard(prev[G_DSTD20_MP20], 0.001f, 1.0f, &m10);
-    const float alloc10 = asel(m10, jclip(0.15f / dv10, 0.0f, 1.5f), 1.0f);
-    vol_family(9, alloc10, true, rets[9], traded[9]);
-    pa_new[9] = alloc10;
-  }
-
-  // ---- S11 hyper-convex ----
-  {
-    const float v11 = guard(prev[G_STD20], 0.001f, 0.5f);
-    float alloc11 = 0.25f / v11;
-    alloc11 = asel(f01(pp > prev[G_SMA200_MP1]), powf(alloc11, 1.2f), alloc11);
-    alloc11 = jclip(alloc11, 0.0f, 1.0f);
-    vol_family(10, alloc11, true, rets[10], traded[10]);
-    pa_new[10] = alloc11;
-  }
-
-  // ---- S12 vol velocity (max of fast/slow vols) ----
-  {
-    const float v12 = guard(jmax(prev[G_STD20], prev[G_STD5]), 0.001f, 0.5f);
-    const float alloc12 = jclip(0.22f / v12, 0.0f, 1.0f);
-    vol_family(11, alloc12, true, rets[11], traded[11]);
-    pa_new[11] = alloc12;
-  }
-
-  // ---- S13 vol-of-vol momentum ----
-  {
-    const float v13 = guard(prev[G_STD20], 0.001f, 0.5f);
-    const float vm13 = prev[G_VOLMOM5];
-    float alloc13 = 0.25f / v13;
-    alloc13 = asel(f01(vm13 < -0.10f), alloc13 * 1.2f, alloc13);
-    alloc13 = asel(f01(vm13 > 0.10f), alloc13 * 0.7f, alloc13);
-    alloc13 = jclip(alloc13, 0.0f, 1.0f);
-    vol_family(12, alloc13, true, rets[12], traded[12]);
-    pa_new[12] = alloc13;
-  }
-
-  // ---- S14 skewness-adjusted convex ----
-  {
-    const float v14 = guard(prev[G_STD20], 0.001f, 0.5f);
-    const float s14 = prev[G_SKEW60];
-    float alloc14 = 0.25f / v14;
-    alloc14 = asel(f01(s14 > 0.0f), powf(alloc14, 1.3f), alloc14);
-    alloc14 = asel(f01(s14 < -0.5f), alloc14 * 0.5f, alloc14);
-    alloc14 = jclip(alloc14, 0.0f, 1.0f);
-    vol_family(13, alloc14, true, rets[13], traded[13]);
-    pa_new[13] = alloc14;
-  }
-
-  // ---- S15 meta-ensemble ----
-  {
-    const float dv15 = guard(prev[G_DSTD20], 0.001f, 0.25f);
-    float alloc15 = 0.28f / dv15;
-    alloc15 = asel(f01(pp > prev[G_SMA200_MP1]), powf(alloc15, 1.2f), alloc15);
-    const float brake15 = f01(prev[G_STD5] > 1.5f * prev[G_STD20]);
-    alloc15 = asel(brake15, alloc15 * 0.5f, alloc15);
-    alloc15 = jclip(alloc15, 0.0f, 1.0f);
-    vol_family(14, alloc15, true, rets[14], traded[14]);
-    pa_new[14] = alloc15;
-  }
-
-  // ---- S16 crisis alpha (regime asymmetric) ----
-  {
-    const float vr16 = prev[G_STD5] / prev[G_STD60];
-    const float crisis16 = jmin(f01(vix > 25.0f) + f01(vr16 > 1.5f), 1.0f);
-    const float target16 = asel(crisis16, 0.08f, 0.30f);
-    float m16;
-    const float rv16 = guard(prev[G_STD5], 0.001f, 1.0f, &m16);
-    const float alloc16 = asel(m16, jclip(target16 / rv16, 0.0f, 1.2f), 0.5f);
-    vol_family(15, alloc16, true, rets[15], traded[15]);
-    pa_new[15] = alloc16;
-  }
-
-  // ---- S17 tail-risk optimizer (skew-aware Kelly) ----
-  {
-    const float vol17 = guard(prev[G_STD20], 0.001f, 0.25f);
-    const float dvol17 = bsel(f01(prev[G_DSTD20] >= 0.001f), prev[G_DSTD20],
-                              vol17 * 0.6f);
-    const float skew17 = bsel(f01(!isnan(prev[G_SKEW60])), prev[G_SKEW60], 0.0f);
-    const float mean17 = bsel(f01(!isnan(prev[G_MEAN60])), prev[G_MEAN60], 0.08f);
-    const float sneg5 = f01(skew17 < -0.5f), sneg0 = f01(skew17 < 0.0f);
-    const float spos5 = f01(skew17 > 0.5f);
-    const float eff17 = asel(sneg5, dvol17 * 1.5f,
-                             asel(sneg0, dvol17 * 1.2f,
-                                  asel(spos5, vol17 * 0.9f, vol17)));
-    const float pen17 = asel(sneg5, 0.6f,
-                             asel(sneg0, 0.8f, asel(spos5, 1.2f, 1.0f)));
-    const float kelly17 = asel(f01(eff17 > 0.01f),
-                               jclip((mean17 - 0.03f) / (eff17 * eff17) * 0.7f,
-                                     0.2f, 2.0f), 1.0f);
-    const float alloc17 = jclip((0.30f / eff17) * pen17 * (kelly17 / 1.5f),
-                                0.0f, 1.5f);
-    vol_family(16, alloc17, true, rets[16], traded[16]);
-    pa_new[16] = alloc17;
-  }
-
-  // ---- S18 momentum-vol convergence ----
-  {
-    const float mom18 = bsel(f01(!isnan(prev[G_SUM126])), prev[G_SUM126], 0.0f);
-    const float vf18 = guard(prev[G_STD10], 0.001f, 0.30f);
-    const float vs18 = guard(prev[G_STD60], 0.001f, 0.25f);
-    const float mm18 = asel(f01(mom18 > 0.05f), 1.3f,
-                            asel(f01(mom18 > 0.0f), 1.0f, 0.5f));
-    const float vr18 = vf18 / vs18;
-    const float out_band = jmin(f01(vr18 < 0.8f) + f01(vr18 > 1.3f), 1.0f);
-    const float vm18 = asel(f01(vr18 < 0.8f), 1.2f,
-                            asel(f01(vr18 > 1.3f), 0.6f, 1.0f));
-    const float eff18 = asel(out_band, vf18, vs18);
-    const float alloc18 = jclip(0.28f * mm18 * vm18 / eff18, 0.0f, 1.5f);
-    vol_family(17, alloc18, true, rets[17], traded[17]);
-    pa_new[17] = alloc18;
-  }
-
-  // ---- S19 conviction compounder (5% rebalance threshold) ----
-  {
-    const float mom19 = bsel(f01(!isnan(prev[G_SUM126])), prev[G_SUM126], 0.0f);
-    const float dv19 = guard(prev[G_DSTD20], 0.001f, 0.20f);
-    const float vf19 = guard(prev[G_STD5], 0.001f, 0.30f);
-    const float vs19 = guard(prev[G_STD60], 0.001f, 0.25f);
-    const float mom_score = asel(f01(mom19 > 0.15f), 1.0f,
-                                 asel(f01(mom19 > 0.05f), 0.7f,
-                                      asel(f01(mom19 > 0.0f), 0.4f, 0.0f)));
-    const float trend_score = f01(pp > prev[G_SMA100_MP1]) * 0.5f;
-    const float vr19 = vf19 / vs19;
-    const float vol_score = asel(f01(vr19 < 0.9f), 0.5f,
-                                 asel(f01(vr19 < 1.2f), 0.3f, 0.0f));
-    const float conviction = mom_score + trend_score + vol_score;
-    const float cand19 = jclip((0.32f / dv19) * (0.3f + conviction * 0.55f),
-                               0.0f, 1.5f);
-    const float turn19 = fabsf(cand19 - st.pa[18]);
-    const float rebal19 = f01(turn19 > 0.05f);
-    const float alloc19 = asel(rebal19, cand19, st.pa[18]);
-    float ret19 = alloc19 * r_tqqq + (1.0f - alloc19) * cashr;
-    if (c.apply_costs) ret19 = ret19 - rebal19 * turn19 * SPREAD;
-    rets[18] = ret19;
-    traded[18] = rebal19;
-    pa_new[18] = alloc19;
-  }
-
-  // ---- combine: equity, cashflow overlay + ruin floor, drawdown ----
-  float eq_new[NS];
-#pragma unroll
-  for (int i = 0; i < NS; ++i)
-    eq_new[i] = (FIRST && i >= 3) ? st.eq[i] : st.eq[i] * (1.0f + rets[i]);
-  eq_new[5] = equity6;
-  const float pre5 = eq_new[5];
-  const float cft = c.cf != nullptr ? c.cf[t] : 0.0f;
-#pragma unroll
-  for (int i = 0; i < NS; ++i) eq_new[i] = ruin_floor(eq_new[i] + cft);
-  const float s6_scale = eq_new[5] / jmax(pre5, 1e-30f);
-  s6p0n = s6p0n * s6_scale;
-  s6p1n = s6p1n * s6_scale;
-#pragma unroll
-  for (int i = 0; i < NS; ++i) {
-    if (FIRST) {
-      st.rm[i] = eq_new[i];
-      st.eq[i] = eq_new[i];
-      continue;
-    }
-    st.tr[i] = st.tr[i] + (i == 5 ? traded[i] * 2.0f : traded[i]);
-    const float rm_new = jmax(st.rm[i], eq_new[i]);
-    const float safe_rm = asel(f01(rm_new > 0.0f), jmax(rm_new, 1e-30f), 1.0f);
-    const float ddv = (eq_new[i] - rm_new) / safe_rm;
-    st.dd[i] = jmax(st.dd[i], -ddv);
-    st.rm[i] = rm_new;
-    st.eq[i] = eq_new[i];
-    st.pa[i] = pa_new[i];
-  }
-  if (!FIRST) {
-    st.pos4 = new4;
-    st.pos5 = new5;
-    st.pos8 = target8;
-  }
-  st.s6p0 = s6p0n; st.s6p1 = s6p1n; st.s6e0 = s6e0n; st.s6e1 = s6e1n;
-
-  // ---- roll the shift(1) values and the rings ----
-  st.pvix = vix;
-#pragma unroll
-  for (int i = 0; i < NSIG; ++i) st.psig[i] = cur[i];
-  ring(R_X, RW_X, 0) = x;
-  ring(R_SPY, RW_SPY, 0) = r_spy;
-  ring(R_P, RW_P, 0) = price;
-  ring(R_S20, RW_S20, 0) = cur[G_STD20];
+  signals_step<FIRST>(cs.sum, rg, t, st.psig[G_PRICE], etf[0], etf[1], cur);
+  strategies_step<FIRST>(st, K, apply_costs, t, etf[0], etf[1], etf[2],
+                        etf[3], cashr, reg, vix, cur,
+                        cf != nullptr ? cf[t] : 0.0f);
 }
 
 __global__ void __launch_bounds__(32)
@@ -557,57 +120,31 @@ compose_strategies_kernel(const float* __restrict__ cf,
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= B) return;
 
-  Ctx c;
-  c.tb = &tb;
-  c.cf = cf;
-  c.rings = rings;
-  c.b = b;
-  c.B = B;
-  c.lane_key = letf_lane_key(ids[b], s0);
-  c.s1 = s1;
-  c.apply_costs = apply_costs != 0;
-
-  for (int r = 0; r < RING_ROWS; ++r) rings[(size_t)r * B + b] = 0.0f;
-  State st;
-  const float IC = tb.k[K_IC];
-  const float NaN = __int_as_float(0x7fc00000);
+  const Rings rg{rings, b, B};
+  const uint32_t lane_key = letf_lane_key(ids[b], s0);
+  StratState st;
+  init_strategies(st, tb.k);
+  ComposeState cs;
+  init_signals(cs.sum, rg);
+  cs.liq = 0.0f; cs.cred = 0.0f;
 #pragma unroll
-  for (int i = 0; i < NS; ++i) {
-    st.eq[i] = IC; st.pa[i] = 0.0f; st.tr[i] = 0.0f; st.rm[i] = IC;
-    st.dd[i] = 0.0f;
-  }
-  st.pos4 = 0.0f; st.pos5 = 0.0f; st.pos8 = 0.0f;
-  st.s6p0 = tb.k[K_IC_W6A]; st.s6p1 = tb.k[K_IC_W6B];
-  st.s6e0 = tb.k[K_L6A]; st.s6e1 = tb.k[K_L6B];
-  st.pvix = NaN;
-#pragma unroll
-  for (int i = 0; i < NSIG; ++i) st.psig[i] = NaN;
-#pragma unroll
-  for (int i = 0; i < NSUM; ++i) st.sum[i] = 0.0f;
-  st.liq = 0.0f; st.cred = 0.0f;
-#pragma unroll
-  for (int k = 0; k < 4; ++k) { st.te[k] = 0.0f; st.bias[k] = 0.0f; }
-  st.jc = 0.0f; st.ls = 0.0f; st.cs = 0.0f; st.fin = 1.0f;
-  st.vmin = INFINITY; st.vmax = -INFINITY; st.rhi = 0.0f;
+  for (int k = 0; k < 4; ++k) { cs.te[k] = 0.0f; cs.bias[k] = 0.0f; }
+  cs.jc = 0.0f; cs.ls = 0.0f; cs.cs = 0.0f; cs.fin = 1.0f;
+  cs.vmin = INFINITY; cs.vmax = -INFINITY; cs.rhi = 0.0f;
 
   for (int t = 0; t < S; ++t) {
     const size_t at = (size_t)t * B + b;
     if (t == 0)
-      day<true>(st, c, t, spy[at], qqq[at], tlt[at], vix[at], irx[at],
-                regime[at]);
+      day<true>(st, cs, tb, rg, cf, lane_key, s1, apply_costs != 0, t,
+                spy[at], qqq[at], tlt[at], vix[at], irx[at], regime[at]);
     else
-      day<false>(st, c, t, spy[at], qqq[at], tlt[at], vix[at], irx[at],
-                 regime[at]);
+      day<false>(st, cs, tb, rg, cf, lane_key, s1, apply_costs != 0, t,
+                 spy[at], qqq[at], tlt[at], vix[at], irx[at], regime[at]);
   }
 
-#pragma unroll
-  for (int i = 0; i < NS; ++i) {
-    out[(size_t)i * B + b] = st.eq[i];
-    out[(size_t)(NS + i) * B + b] = st.tr[i];
-    out[(size_t)(2 * NS + i) * B + b] = st.dd[i];
-  }
-  const float tail[7] = {st.fin, st.jc, st.ls, st.cs, st.vmin, st.vmax,
-                         st.rhi};
+  store_summary(st, out, b, B);
+  const float tail[7] = {cs.fin, cs.jc, cs.ls, cs.cs, cs.vmin, cs.vmax,
+                         cs.rhi};
 #pragma unroll
   for (int i = 0; i < 7; ++i) out[(size_t)(3 * NS + i) * B + b] = tail[i];
 }

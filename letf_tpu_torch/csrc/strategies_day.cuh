@@ -1,0 +1,527 @@
+// The strategy day math shared by kernel K3 (compose_strategies.cu) and
+// kernel K4 (strategies.cu): the 16 rolling signals from ring buffers and
+// exact add/subtract window sums (signals_step), and one day of the 19
+// strategies with their shift(1) signal reads, the cashflow overlay, the
+// ruin floor and the running drawdowns (strategies_step). The semantics are
+// letf_tpu/ops/pallas_strategies.py::_strategy_kernel's day body
+// (:499-966) line for line: pandas min_periods NaN rules, the reference
+// quirks S7 (no cash on the idle fraction, today's signal), S8 (no costs),
+// S9 (frozen on NaN-signal days), S19 (5% rebalance threshold), benchmarks
+// compounding from day 0 while the loop strategies start on day 1. Day 0
+// is a static specialisation (FIRST), as in the reference.
+//
+// The plain PyTorch versions are ops/compose_strategies.py::signals_step
+// and ::strategies_step.
+#pragma once
+
+#include "common.cuh"
+
+namespace strategies_day {
+
+constexpr int NS = 19;
+constexpr int NSIG = 16;
+constexpr int RW_X = 64, RW_SPY = 128, RW_P = 256, RW_S20 = 8;
+constexpr int R_X = 0, R_SPY = RW_X, R_P = RW_X + RW_SPY,
+              R_S20 = RW_X + RW_SPY + RW_P;
+constexpr int RING_ROWS = R_S20 + RW_S20;
+constexpr float SPREAD = 0.0003f, TURNOVER_EPS = 1e-4f;
+constexpr float SQ252 = 15.874507866387544f;
+constexpr float W6A = 0.6f, W6B = 0.4f;
+constexpr float FLT_MIN_NORMAL = 1.17549435082228750797e-38f;
+
+// Strategy constants: the first entries of every strategy kernel's float
+// table (ops/compose_strategies.py::strategy_consts).
+enum { K_IC, K_SP0, K_SPD, K_RCPD_LEV, K_RCPD, K_L6A, K_L6B, K_IC_W6A,
+       K_IC_W6B, NK_STRAT };
+// shift(1) signals, in pallas_strategies.CHANNELS[7:] order.
+enum { G_PRICE, G_STD20_MP20, G_DSTD20_MP20, G_STD5, G_STD10, G_STD20,
+       G_STD60, G_DSTD20, G_SKEW60, G_MEAN60, G_VOLMOM5, G_SUM126,
+       G_SMA200_MP1, G_SMA200, G_SMA100_MP1, G_RSI14 };
+// Running window sums.
+enum { S1_5, S2_5, S1_10, S2_10, S1_20, S2_20, S1_60, S2_60, S3_60, N1_20,
+       N2_20, SPY1_126, P1_100, P1_200, G1_14, L1_14, NSUM };
+
+// Equity below float32's smallest normal is ruin (0), as in the reference,
+// which runs with subnormals flushed to zero: an equity that underflows
+// there stays 0, where IEEE arithmetic would keep a subnormal equity that
+// can recover. NaN passes through.
+__device__ __forceinline__ float ruin_floor(float e) {
+  return e < FLT_MIN_NORMAL ? 0.0f : e;
+}
+
+__device__ __forceinline__ float asel(float m, float a, float b) {
+  return m * a + (1.0f - m) * b;
+}
+__device__ __forceinline__ float bsel(float m, float a, float b) {
+  return m != 0.0f ? a : b;
+}
+__device__ __forceinline__ float guard(float v, float eps, float def,
+                                       float* m = nullptr) {
+  const float mm = f01(v >= eps);
+  if (m) *m = mm;
+  return bsel(mm, v, def);
+}
+
+// Per-trial strategy carries.
+struct StratState {
+  float eq[NS], pa[NS], tr[NS], rm[NS], dd[NS];
+  float pos4, pos5, pos8, s6p0, s6p1, s6e0, s6e1, pvix;
+  float psig[NSIG];
+};
+
+__device__ __forceinline__ void init_strategies(StratState& st,
+                                                const float* K) {
+  const float NaN = __int_as_float(0x7fc00000);
+  const float IC = K[K_IC];
+#pragma unroll
+  for (int i = 0; i < NS; ++i) {
+    st.eq[i] = IC; st.pa[i] = 0.0f; st.tr[i] = 0.0f; st.rm[i] = IC;
+    st.dd[i] = 0.0f;
+  }
+  st.pos4 = 0.0f; st.pos5 = 0.0f; st.pos8 = 0.0f;
+  st.s6p0 = K[K_IC_W6A]; st.s6p1 = K[K_IC_W6B];
+  st.s6e0 = K[K_L6A]; st.s6e1 = K[K_L6B];
+  st.pvix = NaN;
+#pragma unroll
+  for (int i = 0; i < NSIG; ++i) st.psig[i] = NaN;
+}
+
+// Where one trial's signal rings live: a wrapper-allocated global scratch
+// [RING_ROWS, B], trial-contiguous, so each access coalesces across a warp.
+struct Rings {
+  float* base;
+  int b, B;
+  __device__ __forceinline__ float& at(int row0, int W, int t, int lag) const {
+    return base[(size_t)(row0 + ((t - lag) & (W - 1))) * B + b];
+  }
+};
+
+__device__ __forceinline__ void init_signals(float* sum, const Rings& rg) {
+#pragma unroll
+  for (int i = 0; i < NSUM; ++i) sum[i] = 0.0f;
+  for (int r = 0; r < RING_ROWS; ++r) rg.base[(size_t)r * rg.B + rg.b] = 0.0f;
+}
+
+// Today's 16 signals (cur, in G_* order) from today's TQQQ and SPY
+// returns; prev_price is yesterday's SPY price signal. Updates the window
+// sums and writes today's values into the rings.
+template <bool FIRST>
+__device__ __forceinline__ void signals_step(float* sum, const Rings& rg,
+                                            int t, float prev_price,
+                                            float r_tqqq, float r_spy,
+                                            float* cur) {
+  const float NaN = __int_as_float(0x7fc00000);
+  const float price = FIRST ? 100.0f * (1.0f + r_spy)
+                            : prev_price * (1.0f + r_spy);
+  const float x = r_tqqq;
+  const float neg = jmin(x, 0.0f);
+  const float x5 = rg.at(R_X, RW_X, t, 5), x10 = rg.at(R_X, RW_X, t, 10);
+  const float x20 = rg.at(R_X, RW_X, t, 20), x60 = rg.at(R_X, RW_X, t, 60);
+  const float spy126 = rg.at(R_SPY, RW_SPY, t, 126);
+  const float p100 = rg.at(R_P, RW_P, t, 100), p200 = rg.at(R_P, RW_P, t, 200);
+  const float p14 = rg.at(R_P, RW_P, t, 14), p15 = rg.at(R_P, RW_P, t, 15);
+  const float s20l5 = rg.at(R_S20, RW_S20, t, 5);
+  auto leave = [&](int lag) { return t >= lag ? 1.0f : 0.0f; };
+  auto upd = [&](int i, float add, float sub, int lag) {
+    sum[i] = sum[i] + add - leave(lag) * sub;
+    return sum[i];
+  };
+  const float s1_5 = upd(S1_5, x, x5, 5);
+  const float s2_5 = upd(S2_5, x * x, x5 * x5, 5);
+  const float s1_10 = upd(S1_10, x, x10, 10);
+  const float s2_10 = upd(S2_10, x * x, x10 * x10, 10);
+  const float s1_20 = upd(S1_20, x, x20, 20);
+  const float s2_20 = upd(S2_20, x * x, x20 * x20, 20);
+  const float s1_60 = upd(S1_60, x, x60, 60);
+  const float s2_60 = upd(S2_60, x * x, x60 * x60, 60);
+  const float s3_60 = upd(S3_60, x * x * x, x60 * x60 * x60, 60);
+  const float ng20 = jmin(x20, 0.0f);
+  const float n1_20 = upd(N1_20, neg, ng20, 20);
+  const float n2_20 = upd(N2_20, neg * neg, ng20 * ng20, 20);
+  const float spy1_126 = upd(SPY1_126, r_spy, spy126, 126);
+  const float p1_100 = upd(P1_100, price, p100, 100);
+  const float p1_200 = upd(P1_200, price, p200, 200);
+  const float delta = FIRST ? 0.0f : price - prev_price;
+  const float sub_d = leave(15) * (p14 - p15);
+  const float g1_14 = upd(G1_14, jmax(delta, 0.0f), jmax(sub_d, 0.0f), 0);
+  const float l1_14 = upd(L1_14, jmax(-delta, 0.0f), jmax(-sub_d, 0.0f), 0);
+
+  const float tn = (float)t + 1.0f;
+  auto nn = [&](float w) { return fminf(tn, w); };
+  auto gate = [&](int min_t, float v) { return t >= min_t ? v : NaN; };
+  auto wstd = [&](float s1, float s2, float w, int min_t) {
+    const float n = nn(w);
+    const float mean = s1 / n;
+    const float var = jmax(s2 - n * mean * mean, 0.0f) / fmaxf(n - 1.0f, 1.0f);
+    return gate(min_t, sqrtf(var) * SQ252);
+  };
+  cur[G_PRICE] = price;
+  cur[G_STD5] = wstd(s1_5, s2_5, 5.0f, 1);
+  cur[G_STD10] = wstd(s1_10, s2_10, 10.0f, 1);
+  cur[G_STD20] = wstd(s1_20, s2_20, 20.0f, 1);
+  cur[G_STD60] = wstd(s1_60, s2_60, 60.0f, 1);
+  cur[G_STD20_MP20] = wstd(s1_20, s2_20, 20.0f, 19);
+  cur[G_DSTD20] = wstd(n1_20, n2_20, 20.0f, 1);
+  cur[G_DSTD20_MP20] = wstd(n1_20, n2_20, 20.0f, 19);
+  {
+    const float n60 = nn(60.0f);
+    const float mean60 = s1_60 / n60;
+    cur[G_MEAN60] = mean60 * 252.0f;
+    const float m2 = jmax(s2_60 - n60 * mean60 * mean60, 0.0f);
+    const float m3 = s3_60 - 3.0f * mean60 * s2_60
+                     + 2.0f * n60 * mean60 * mean60 * mean60;
+    const float var60 = m2 / fmaxf(n60 - 1.0f, 1.0f);
+    const float sd60 = sqrtf(var60);
+    const float denom = fmaxf(n60 - 1.0f, 1.0f) * fmaxf(n60 - 2.0f, 1.0f)
+                        * sd60 * sd60 * sd60;
+    const float skew_ok = (t >= 2 ? 1.0f : 0.0f) * f01(sd60 > 0.0f);
+    cur[G_SKEW60] = bsel(skew_ok, n60 * m3 / jmax(denom, 1e-37f), NaN);
+  }
+  cur[G_VOLMOM5] = gate(5, cur[G_STD20] / s20l5 - 1.0f);
+  cur[G_SUM126] = spy1_126;
+  cur[G_SMA200_MP1] = p1_200 / nn(200.0f);
+  cur[G_SMA200] = gate(199, p1_200 / nn(200.0f));
+  cur[G_SMA100_MP1] = p1_100 / nn(100.0f);
+  {
+    const float rs = g1_14 / l1_14;
+    cur[G_RSI14] = gate(13, 100.0f - 100.0f / (1.0f + rs));
+  }
+
+  // Today's values into the rings (every read above is of an earlier day).
+  rg.at(R_X, RW_X, t, 0) = x;
+  rg.at(R_SPY, RW_SPY, t, 0) = r_spy;
+  rg.at(R_P, RW_P, t, 0) = price;
+  rg.at(R_S20, RW_S20, t, 0) = cur[G_STD20];
+}
+
+// One day of the 19 strategies. cur: today's signals (G_* order; S7 reads
+// its vol signal unshifted, every other strategy yesterday's, st.psig);
+// cft: the day's cashflow. Rolls st.psig to cur and st.pvix to vix.
+template <bool FIRST>
+__device__ __forceinline__ void strategies_step(StratState& st, const float* K,
+                                               bool apply_costs, int t,
+                                               float r_tqqq, float r_spy,
+                                               float r_sso, float r_tmf,
+                                               float cashr, float reg,
+                                               float vix, const float* cur,
+                                               float cft) {
+  const float vix_prev = st.pvix;
+  const float pp = st.psig[G_PRICE];                 // NaN on day 0
+  const float* prev = st.psig;
+
+  float rets[NS], traded[NS], pa_new[NS];
+  // ---- S1-S3 benchmarks ----
+  rets[0] = r_tqqq; rets[1] = r_spy; rets[2] = r_sso;
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    traded[i] = 0.0f;
+    pa_new[i] = st.pa[i];
+  }
+
+  // ---- S4/S5 SMA state machines ----
+  float new4, new5, flip4, flip5;
+  if (FIRST) {
+    new4 = st.pos4; new5 = st.pos5; flip4 = 0.0f; flip5 = 0.0f;
+  } else {
+    const float sma1 = prev[G_SMA200_MP1];
+    const float buy4 = f01(pp >= sma1), sell4 = f01(pp < sma1);
+    new4 = asel(f01(st.pos4 == 1.0f), 1.0f - sell4, buy4);
+    flip4 = f01(new4 != st.pos4);
+    const float thresh5 = sma1 * (float)(1.0 - 0.02);
+    const float buy5 = f01(pp >= thresh5), sell5 = f01(pp < thresh5);
+    new5 = asel(f01(st.pos5 == 1.0f), 1.0f - sell5, buy5);
+    flip5 = f01(new5 != st.pos5);
+  }
+  const float sma_cost = (K[K_SP0] + K[K_SPD] * reg) / 10000.0f
+                         + K[K_RCPD_LEV] * fabsf(r_tqqq);
+  {
+    const float newp[2] = {new4, new5}, flip[2] = {flip4, flip5};
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      float ret_s = asel(newp[i], r_tqqq, cashr);
+      if (apply_costs) ret_s = ret_s - flip[i] * sma_cost;
+      rets[3 + i] = ret_s;
+      traded[3 + i] = flip[i];
+      pa_new[3 + i] = st.pa[3 + i];
+    }
+  }
+
+  // ---- S6 60/40 TQQQ/TMF with leverage-drift turnover ----
+  const float L6A = K[K_L6A], L6B = K[K_L6B];
+  const float pg0 = st.s6p0 * (1.0f + r_tqqq);
+  const float pg1 = st.s6p1 * (1.0f + r_tmf);
+  const float u6a = r_tqqq / L6A, u6b = r_tmf / L6B;
+  const float den_a = 1.0f + L6A * u6a, den_b = 1.0f + L6B * u6b;
+  const float ma = f01(fabsf(den_a) > 0.01f), mb = f01(fabsf(den_b) > 0.01f);
+  const float emb0 = asel(ma, L6A * (1.0f + u6a) / bsel(ma, den_a, 1.0f), L6A);
+  const float emb1 = asel(mb, L6B * (1.0f + u6b) / bsel(mb, den_b, 1.0f), L6B);
+  const float total6 = pg0 + pg1;
+  const float rebf = (t % 21 == 0 && t > 0) ? 1.0f : 0.0f;
+  const float inv_t6 = 1.0f / jmax(total6, 1e-30f);
+  const float cw0 = pg0 * inv_t6, cw1 = pg1 * inv_t6;
+  const float w_turn = fabsf(cw0 - W6A) + fabsf(cw1 - W6B);
+  const float lev_turn = fabsf(emb0 - L6A) / L6A * cw0
+                         + fabsf(emb1 - L6B) / L6B * cw1;
+  const float tot_turn = w_turn + lev_turn;
+  const float do_cost = apply_costs ? rebf * f01(tot_turn > 0.01f) : 0.0f;
+  const float total_after = asel(do_cost, total6 * (1.0f - tot_turn * K[K_RCPD]),
+                                 total6);
+  float s6p0n, s6p1n, s6e0n, s6e1n, equity6;
+  if (FIRST) {
+    s6p0n = st.s6p0; s6p1n = st.s6p1; s6e0n = st.s6e0; s6e1n = st.s6e1;
+    equity6 = st.eq[5];
+    traded[5] = 0.0f;
+  } else {
+    s6p0n = asel(rebf, total_after * W6A, pg0);
+    s6p1n = asel(rebf, total_after * W6B, pg1);
+    s6e0n = asel(rebf, L6A, emb0);
+    s6e1n = asel(rebf, L6B, emb1);
+    equity6 = total_after;
+    traded[5] = rebf;
+  }
+  rets[5] = 0.0f;
+  pa_new[5] = st.pa[5];
+
+  auto vol_family = [&](int i, float alloc, bool include_cash, float& ret,
+                        float& trm) {
+    const float turnover = fabsf(alloc - st.pa[i]);
+    trm = f01(turnover > TURNOVER_EPS);
+    ret = include_cash ? alloc * r_tqqq + (1.0f - alloc) * cashr
+                       : alloc * r_tqqq;
+    if (apply_costs) ret = ret - trm * turnover * SPREAD;
+  };
+
+  // ---- S7 vol targeting 20% (no cash on the idle fraction) ----
+  {
+    float m7;
+    const float v7 = guard(cur[G_STD20_MP20], 0.01f, 1.0f, &m7);
+    const float pos7 = asel(m7, jclip(0.20f / v7, 0.2f, 2.0f), 1.0f);
+    vol_family(6, pos7, false, rets[6], traded[6]);
+    pa_new[6] = pos7;
+  }
+
+  // ---- S8 composite regime (TQQQ / SPY / cash; no costs) ----
+  float target8;
+  if (FIRST) {
+    target8 = st.pos8;
+    rets[7] = 0.0f;
+    traded[7] = 0.0f;
+  } else {
+    const float rsi8 = prev[G_RSI14];
+    const float sc = f01(pp > prev[G_SMA200]) + f01((rsi8 > 40.0f) && (rsi8 < 80.0f))
+                     + f01(vix_prev < 25.0f);
+    target8 = asel(f01(sc == 3.0f), 2.0f, asel(f01(sc == 2.0f), 1.0f, 0.0f));
+    rets[7] = asel(f01(target8 == 2.0f), r_tqqq,
+                   asel(f01(target8 == 1.0f), r_spy, cashr));
+    traded[7] = f01(target8 != st.pos8);
+  }
+  pa_new[7] = st.pa[7];
+
+  // ---- S9 adaptive vol target (skips NaN days entirely) ----
+  {
+    const float v9r = prev[G_STD20_MP20], sma9 = prev[G_SMA200];
+    const float ok9 = f01(v9r >= 0.001f) * f01(!isnan(sma9));
+    const float target_v9 = asel(f01(pp > sma9), 0.35f, 0.12f);
+    const float v9 = bsel(ok9, v9r, 1.0f);
+    const float alloc9 = asel(ok9, jclip(target_v9 / v9, 0.0f, 1.0f), st.pa[8]);
+    float ret9, tr9;
+    vol_family(8, alloc9, true, ret9, tr9);
+    rets[8] = ret9 * ok9;
+    traded[8] = tr9 * ok9;
+    pa_new[8] = alloc9;
+  }
+
+  // ---- S10 Sortino (downside vol target) ----
+  {
+    float m10;
+    const float dv10 = guard(prev[G_DSTD20_MP20], 0.001f, 1.0f, &m10);
+    const float alloc10 = asel(m10, jclip(0.15f / dv10, 0.0f, 1.5f), 1.0f);
+    vol_family(9, alloc10, true, rets[9], traded[9]);
+    pa_new[9] = alloc10;
+  }
+
+  // ---- S11 hyper-convex ----
+  {
+    const float v11 = guard(prev[G_STD20], 0.001f, 0.5f);
+    float alloc11 = 0.25f / v11;
+    alloc11 = asel(f01(pp > prev[G_SMA200_MP1]), powf(alloc11, 1.2f), alloc11);
+    alloc11 = jclip(alloc11, 0.0f, 1.0f);
+    vol_family(10, alloc11, true, rets[10], traded[10]);
+    pa_new[10] = alloc11;
+  }
+
+  // ---- S12 vol velocity (max of fast/slow vols) ----
+  {
+    const float v12 = guard(jmax(prev[G_STD20], prev[G_STD5]), 0.001f, 0.5f);
+    const float alloc12 = jclip(0.22f / v12, 0.0f, 1.0f);
+    vol_family(11, alloc12, true, rets[11], traded[11]);
+    pa_new[11] = alloc12;
+  }
+
+  // ---- S13 vol-of-vol momentum ----
+  {
+    const float v13 = guard(prev[G_STD20], 0.001f, 0.5f);
+    const float vm13 = prev[G_VOLMOM5];
+    float alloc13 = 0.25f / v13;
+    alloc13 = asel(f01(vm13 < -0.10f), alloc13 * 1.2f, alloc13);
+    alloc13 = asel(f01(vm13 > 0.10f), alloc13 * 0.7f, alloc13);
+    alloc13 = jclip(alloc13, 0.0f, 1.0f);
+    vol_family(12, alloc13, true, rets[12], traded[12]);
+    pa_new[12] = alloc13;
+  }
+
+  // ---- S14 skewness-adjusted convex ----
+  {
+    const float v14 = guard(prev[G_STD20], 0.001f, 0.5f);
+    const float s14 = prev[G_SKEW60];
+    float alloc14 = 0.25f / v14;
+    alloc14 = asel(f01(s14 > 0.0f), powf(alloc14, 1.3f), alloc14);
+    alloc14 = asel(f01(s14 < -0.5f), alloc14 * 0.5f, alloc14);
+    alloc14 = jclip(alloc14, 0.0f, 1.0f);
+    vol_family(13, alloc14, true, rets[13], traded[13]);
+    pa_new[13] = alloc14;
+  }
+
+  // ---- S15 meta-ensemble ----
+  {
+    const float dv15 = guard(prev[G_DSTD20], 0.001f, 0.25f);
+    float alloc15 = 0.28f / dv15;
+    alloc15 = asel(f01(pp > prev[G_SMA200_MP1]), powf(alloc15, 1.2f), alloc15);
+    const float brake15 = f01(prev[G_STD5] > 1.5f * prev[G_STD20]);
+    alloc15 = asel(brake15, alloc15 * 0.5f, alloc15);
+    alloc15 = jclip(alloc15, 0.0f, 1.0f);
+    vol_family(14, alloc15, true, rets[14], traded[14]);
+    pa_new[14] = alloc15;
+  }
+
+  // ---- S16 crisis alpha (regime asymmetric) ----
+  {
+    const float vr16 = prev[G_STD5] / prev[G_STD60];
+    const float crisis16 = jmin(f01(vix > 25.0f) + f01(vr16 > 1.5f), 1.0f);
+    const float target16 = asel(crisis16, 0.08f, 0.30f);
+    float m16;
+    const float rv16 = guard(prev[G_STD5], 0.001f, 1.0f, &m16);
+    const float alloc16 = asel(m16, jclip(target16 / rv16, 0.0f, 1.2f), 0.5f);
+    vol_family(15, alloc16, true, rets[15], traded[15]);
+    pa_new[15] = alloc16;
+  }
+
+  // ---- S17 tail-risk optimizer (skew-aware Kelly) ----
+  {
+    const float vol17 = guard(prev[G_STD20], 0.001f, 0.25f);
+    const float dvol17 = bsel(f01(prev[G_DSTD20] >= 0.001f), prev[G_DSTD20],
+                              vol17 * 0.6f);
+    const float skew17 = bsel(f01(!isnan(prev[G_SKEW60])), prev[G_SKEW60], 0.0f);
+    const float mean17 = bsel(f01(!isnan(prev[G_MEAN60])), prev[G_MEAN60], 0.08f);
+    const float sneg5 = f01(skew17 < -0.5f), sneg0 = f01(skew17 < 0.0f);
+    const float spos5 = f01(skew17 > 0.5f);
+    const float eff17 = asel(sneg5, dvol17 * 1.5f,
+                             asel(sneg0, dvol17 * 1.2f,
+                                  asel(spos5, vol17 * 0.9f, vol17)));
+    const float pen17 = asel(sneg5, 0.6f,
+                             asel(sneg0, 0.8f, asel(spos5, 1.2f, 1.0f)));
+    const float kelly17 = asel(f01(eff17 > 0.01f),
+                               jclip((mean17 - 0.03f) / (eff17 * eff17) * 0.7f,
+                                     0.2f, 2.0f), 1.0f);
+    const float alloc17 = jclip((0.30f / eff17) * pen17 * (kelly17 / 1.5f),
+                                0.0f, 1.5f);
+    vol_family(16, alloc17, true, rets[16], traded[16]);
+    pa_new[16] = alloc17;
+  }
+
+  // ---- S18 momentum-vol convergence ----
+  {
+    const float mom18 = bsel(f01(!isnan(prev[G_SUM126])), prev[G_SUM126], 0.0f);
+    const float vf18 = guard(prev[G_STD10], 0.001f, 0.30f);
+    const float vs18 = guard(prev[G_STD60], 0.001f, 0.25f);
+    const float mm18 = asel(f01(mom18 > 0.05f), 1.3f,
+                            asel(f01(mom18 > 0.0f), 1.0f, 0.5f));
+    const float vr18 = vf18 / vs18;
+    const float out_band = jmin(f01(vr18 < 0.8f) + f01(vr18 > 1.3f), 1.0f);
+    const float vm18 = asel(f01(vr18 < 0.8f), 1.2f,
+                            asel(f01(vr18 > 1.3f), 0.6f, 1.0f));
+    const float eff18 = asel(out_band, vf18, vs18);
+    const float alloc18 = jclip(0.28f * mm18 * vm18 / eff18, 0.0f, 1.5f);
+    vol_family(17, alloc18, true, rets[17], traded[17]);
+    pa_new[17] = alloc18;
+  }
+
+  // ---- S19 conviction compounder (5% rebalance threshold) ----
+  {
+    const float mom19 = bsel(f01(!isnan(prev[G_SUM126])), prev[G_SUM126], 0.0f);
+    const float dv19 = guard(prev[G_DSTD20], 0.001f, 0.20f);
+    const float vf19 = guard(prev[G_STD5], 0.001f, 0.30f);
+    const float vs19 = guard(prev[G_STD60], 0.001f, 0.25f);
+    const float mom_score = asel(f01(mom19 > 0.15f), 1.0f,
+                                 asel(f01(mom19 > 0.05f), 0.7f,
+                                      asel(f01(mom19 > 0.0f), 0.4f, 0.0f)));
+    const float trend_score = f01(pp > prev[G_SMA100_MP1]) * 0.5f;
+    const float vr19 = vf19 / vs19;
+    const float vol_score = asel(f01(vr19 < 0.9f), 0.5f,
+                                 asel(f01(vr19 < 1.2f), 0.3f, 0.0f));
+    const float conviction = mom_score + trend_score + vol_score;
+    const float cand19 = jclip((0.32f / dv19) * (0.3f + conviction * 0.55f),
+                               0.0f, 1.5f);
+    const float turn19 = fabsf(cand19 - st.pa[18]);
+    const float rebal19 = f01(turn19 > 0.05f);
+    const float alloc19 = asel(rebal19, cand19, st.pa[18]);
+    float ret19 = alloc19 * r_tqqq + (1.0f - alloc19) * cashr;
+    if (apply_costs) ret19 = ret19 - rebal19 * turn19 * SPREAD;
+    rets[18] = ret19;
+    traded[18] = rebal19;
+    pa_new[18] = alloc19;
+  }
+
+  // ---- combine: equity, cashflow overlay + ruin floor, drawdown ----
+  float eq_new[NS];
+#pragma unroll
+  for (int i = 0; i < NS; ++i)
+    eq_new[i] = (FIRST && i >= 3) ? st.eq[i] : st.eq[i] * (1.0f + rets[i]);
+  eq_new[5] = equity6;
+  const float pre5 = eq_new[5];
+#pragma unroll
+  for (int i = 0; i < NS; ++i) eq_new[i] = ruin_floor(eq_new[i] + cft);
+  const float s6_scale = eq_new[5] / jmax(pre5, 1e-30f);
+  s6p0n = s6p0n * s6_scale;
+  s6p1n = s6p1n * s6_scale;
+#pragma unroll
+  for (int i = 0; i < NS; ++i) {
+    if (FIRST) {
+      st.rm[i] = eq_new[i];
+      st.eq[i] = eq_new[i];
+      continue;
+    }
+    st.tr[i] = st.tr[i] + (i == 5 ? traded[i] * 2.0f : traded[i]);
+    const float rm_new = jmax(st.rm[i], eq_new[i]);
+    const float safe_rm = asel(f01(rm_new > 0.0f), jmax(rm_new, 1e-30f), 1.0f);
+    const float ddv = (eq_new[i] - rm_new) / safe_rm;
+    st.dd[i] = jmax(st.dd[i], -ddv);
+    st.rm[i] = rm_new;
+    st.eq[i] = eq_new[i];
+    st.pa[i] = pa_new[i];
+  }
+  if (!FIRST) {
+    st.pos4 = new4;
+    st.pos5 = new5;
+    st.pos8 = target8;
+  }
+  st.s6p0 = s6p0n; st.s6p1 = s6p1n; st.s6e0 = s6e0n; st.s6e1 = s6e1n;
+
+  // ---- roll the shift(1) values ----
+  st.pvix = vix;
+#pragma unroll
+  for (int i = 0; i < NSIG; ++i) st.psig[i] = cur[i];
+}
+
+// The 57 summary rows [3 * NS, B]: final equity, trade counts, max drawdown.
+__device__ __forceinline__ void store_summary(const StratState& st,
+                                              float* out, int b, int B) {
+#pragma unroll
+  for (int i = 0; i < NS; ++i) {
+    out[(size_t)i * B + b] = st.eq[i];
+    out[(size_t)(NS + i) * B + b] = st.tr[i];
+    out[(size_t)(2 * NS + i) * B + b] = st.dd[i];
+  }
+}
+
+}  // namespace strategies_day

@@ -1,22 +1,457 @@
-"""Model tables of the port: the JAX package's ``SimModel`` carried across.
+"""Model tables of the port: the ``SimModel`` tree, its defaults, and the
+float32 parameter tables the kernels read.
 
-``from_numpy`` turns a ``letf_tpu.models.params.SimModel`` (numpy leaves,
-NumPy-only module, imported as is) into the same NamedTuple with torch
-tensors on one device in the glue dtype. The three packers return the
-float32 parameter tables the kernels read, built by the same float32
-operations as their JAX counterparts:
+The port's own copy of ``letf_tpu/models/params.py`` (same NamedTuple and
+field names, same derivations): ``SimModel`` and its parts,
+``default_sim_model``, ``build_sim_model`` (a calibration dict densified
+into the tree) and ``nearest_psd_matrix`` (``letf_tpu/utils/psd.py``).
+Leaves are numpy arrays.
 
-- ``pack_joint_params``  <- ``pallas_joint._pack_params``         [25, 2]
-- ``pack_stress_params`` <- ``pallas_compose._pack_stress_params`` [16, 2]
-- ``pack_asset_params``  <- ``pallas_compose._pack_asset_params``  [9, A]
+- ``from_jax_model`` carries a model across from the JAX package: it takes
+  that package's ``SimModel`` (a tree of numpy arrays) and returns the
+  port's, matched field by field.
+- ``from_numpy`` turns the port's tree into torch tensors on one device in
+  the glue dtype.
+- The three packers return the float32 tables of the kernels, built by the
+  same float32 operations as their JAX counterparts:
+  ``pack_joint_params`` <- ``pallas_joint._pack_params`` [25, 2],
+  ``pack_stress_params`` <- ``pallas_compose._pack_stress_params`` [16, 2],
+  ``pack_asset_params`` <- ``pallas_compose._pack_asset_params`` [9, A].
 """
 
 from __future__ import annotations
 
+from typing import Dict, NamedTuple, Optional
+
 import numpy as np
 import torch
 
-from letf_tpu.models.params import SimModel, default_sim_model  # noqa: F401
+from letf_tpu_torch import config as cfg
+
+
+def nearest_psd_matrix(corr_matrix: np.ndarray) -> np.ndarray:
+    """Eigen-clip to 1e-8 and renormalize to unit diagonal."""
+    w, v = np.linalg.eigh(np.asarray(corr_matrix, dtype=np.float64))
+    w = np.maximum(w, 1e-8)
+    m = (v * w) @ v.T
+    d = np.sqrt(np.diag(m))
+    return m / np.outer(d, d)
+
+
+R = cfg.N_REGIMES
+K = 3          # joint underlyings: SPY, QQQ, TLT
+A = cfg.N_ASSETS
+D = cfg.MAX_DWELL_SAMPLES
+
+
+class RegimeParams(NamedTuple):
+    transition: np.ndarray      # [R, R] row-stochastic
+    dwell_values: np.ndarray    # [R, D] empirical dwell lengths (padded)
+    dwell_cdf: np.ndarray       # [R, D] cumulative probabilities
+    has_dwell: np.ndarray       # [R] 1.0 if empirical table is valid
+    p_stay: np.ndarray          # [R] clip(diag, 0.80, 0.995) geometric fallback
+    daily_std: np.ndarray       # [R] SPY daily std (VIX shock normalization)
+    daily_mean: np.ndarray      # [R]
+    start_probs: np.ndarray     # [R] regime_only start probabilities
+
+
+class JointParams(NamedTuple):
+    mu: np.ndarray              # [R, K]
+    nu: np.ndarray              # [R]
+    garch_alpha: np.ndarray     # [R]
+    garch_beta: np.ndarray      # [R] stationarity-capped
+    dcc_a: np.ndarray           # [R]
+    dcc_b: np.ndarray           # [R]
+    long_var: np.ndarray        # [R, K] t-scaled unconditional variances
+    rbar: np.ndarray            # [R, K, K] PSD unconditional correlation
+    theo_mean: np.ndarray       # [K] plain average of mu over regimes
+    chi_cheb: np.ndarray        # [R, CHI_CHEB_DEG+1] Chebyshev coeffs of
+                                # log chi2_ppf(Phi(z), nu) on z/CHI_CHEB_ZMAX
+                                # (fast chi-square sampler, see chi2_from_normal)
+
+
+class VixParams(NamedTuple):
+    phi: np.ndarray             # [R]
+    noise_std: np.ndarray       # [R]
+    jump_threshold: np.ndarray  # [R] sigma units
+    jump_scale: np.ndarray      # [R]
+    target: np.ndarray          # [R]
+    base: np.ndarray            # [R] initial VIX level per start regime
+
+
+class StressParams(NamedTuple):
+    liq_mu: np.ndarray          # [R]
+    liq_phi: np.ndarray
+    liq_sigma: np.ndarray
+    credit_mu: np.ndarray
+    credit_phi: np.ndarray
+    credit_sigma: np.ndarray
+    jump_base_prob: np.ndarray
+    jump_scale: np.ndarray
+
+
+class FundingParams(NamedTuple):
+    base: np.ndarray            # scalars (0-d arrays)
+    beta_vix: np.ndarray
+    beta_inv_curve: np.ndarray
+    beta_liquidity: np.ndarray
+    beta_credit: np.ndarray
+    min_spread: np.ndarray
+    max_spread: np.ndarray
+
+
+class TrackingParams(NamedTuple):
+    rho: np.ndarray             # [A]
+    downside_mult: np.ndarray   # [A] capped at 1.10 (execution-noise only)
+    clip_limit: np.ndarray      # [A] tanh saturation cap; <=0 disables
+    te_scale: np.ndarray        # [A] config tracking_error_base
+    te_df: np.ndarray           # [A]
+
+
+class AssetParams(NamedTuple):
+    leverage: np.ndarray        # [A]
+    expense_ratio: np.ndarray   # [A]
+    underlying: np.ndarray      # [A] int32 index into (SPY, QQQ, TLT)
+    beta: np.ndarray            # [A] multiplier on the underlying stream
+    fallback_spread: np.ndarray # [A] borrow spread when no funding model
+
+
+class SimModel(NamedTuple):
+    regime: RegimeParams
+    joint: JointParams
+    vix: VixParams
+    irx_base: np.ndarray        # [R]
+    stress: StressParams
+    funding: FundingParams
+    tracking: TrackingParams
+    assets: AssetParams
+    cash_rate: np.ndarray       # [R] annual cash rate by regime
+
+
+# ---------------------------------------------------------------------------
+# Derivation helpers
+# ---------------------------------------------------------------------------
+
+# Fast chi-square sampler table: a degree-13 Chebyshev fit of
+# log chi2_ppf(Phi(z), nu) over z in [-CHI_CHEB_ZMAX, CHI_CHEB_ZMAX] turns
+# one standard normal into an (approximate to <5e-5 relative on the
+# quantile) chi-square(nu) draw with 13 FMAs + one exp — replacing the
+# gamma rejection sampler on the production fast path. f32 Box-Muller /
+# threefry normals never exceed ~6 sigma, so the fit range covers every
+# representable draw.
+CHI_CHEB_DEG = 13
+CHI_CHEB_ZMAX = 6.3
+
+
+def chi2_log_quantile_cheb(nu: float, deg: int = CHI_CHEB_DEG,
+                           zmax: float = CHI_CHEB_ZMAX) -> np.ndarray:
+    """Chebyshev coefficients (on t = z/zmax) of log chi2_ppf(Phi(z), nu)."""
+    from scipy import stats
+
+    z = np.linspace(-zmax, zmax, 8001)
+    y = np.log(stats.chi2.ppf(stats.norm.cdf(z), float(nu)))
+    return np.polynomial.chebyshev.chebfit(z / zmax, y, deg)
+
+
+def derive_joint_params(mu, cov, nu, alpha, beta, dcc_a, dcc_b) -> JointParams:
+    """Precompute scan-ready joint-model arrays from per-regime (mu, cov, nu,
+    GARCH/DCC) parameters. All inputs are [R, ...] stacked."""
+    mu = np.asarray(mu, np.float64)
+    cov = np.asarray(cov, np.float64)
+    nu = np.asarray(nu, np.float64)
+    alpha = np.asarray(alpha, np.float64)
+    beta = np.asarray(beta, np.float64).copy()
+    dcc_a = np.asarray(dcc_a, np.float64)
+    dcc_b = np.asarray(dcc_b, np.float64)
+
+    t_scale = np.where(nu > 2.0, (nu - 2.0) / nu, 0.5)
+    long_var = np.clip(np.einsum("rkk->rk", cov) * t_scale[:, None], 1e-8, None)
+
+    eff_alpha = np.where(nu > 2.0, alpha * nu / (nu - 2.0), alpha * 2.0)
+    cap = eff_alpha + beta >= 1.0
+    beta = np.where(cap, np.maximum(0.70, 0.98 - eff_alpha), beta)
+
+    d = np.sqrt(np.einsum("rkk->rk", cov))
+    rbar = cov / (d[:, :, None] * d[:, None, :])
+    rbar = np.stack([nearest_psd_matrix(rbar[r]) for r in range(rbar.shape[0])])
+
+    chi_cheb = np.stack([chi2_log_quantile_cheb(float(n)) for n in nu])
+
+    return JointParams(
+        mu=mu, nu=nu, garch_alpha=alpha, garch_beta=beta,
+        dcc_a=dcc_a, dcc_b=dcc_b, long_var=long_var, rbar=rbar,
+        theo_mean=mu.mean(axis=0), chi_cheb=chi_cheb)
+
+
+def build_dwell_tables(duration_samples: Optional[Dict[int, list]]) -> tuple:
+    """Pad per-regime empirical dwell samples into fixed [R, D] tables with a
+    uniform CDF over the recorded samples (matching rng.choice semantics)."""
+    values = np.ones((R, D), np.float64)
+    cdf = np.tile((np.arange(D) + 1) / D, (R, 1))
+    has = np.zeros(R, np.float64)
+    if duration_samples:
+        for r in range(R):
+            samples = duration_samples.get(r, [])
+            if len(samples) > 0:
+                s = np.asarray(samples, np.float64)
+                if len(s) > D:
+                    # Keep the empirical distribution by quantile-resampling.
+                    s = np.quantile(s, (np.arange(D) + 0.5) / D)
+                n = len(s)
+                values[r, :n] = s
+                values[r, n:] = s[-1]
+                cdf[r] = np.minimum((np.arange(D) + 1) / n, 1.0)
+                has[r] = 1.0
+    return values, cdf, has
+
+
+# ---------------------------------------------------------------------------
+# Defaults (reference fallback parameterization)
+# ---------------------------------------------------------------------------
+
+def default_joint_params() -> JointParams:
+    mu = np.array([[0.08, 0.10, 0.03], [0.08, 0.10, 0.03]]) / 252.0
+    vol = np.array([[0.16, 0.24, 0.12], [0.28, 0.42, 0.16]])
+    corr = np.array([
+        [[1.0, 0.90, -0.20], [0.90, 1.0, -0.18], [-0.20, -0.18, 1.0]],
+        [[1.0, 0.96, -0.05], [0.96, 1.0, -0.03], [-0.05, -0.03, 1.0]],
+    ])
+    dvol = vol / np.sqrt(252.0)
+    cov = dvol[:, :, None] * dvol[:, None, :] * corr
+    return derive_joint_params(
+        mu=mu, cov=cov, nu=[5.0, 4.0], alpha=[0.06, 0.09], beta=[0.90, 0.86],
+        dcc_a=[0.02, 0.04], dcc_b=[0.95, 0.90])
+
+
+def default_regime_params() -> RegimeParams:
+    transition = np.array([[0.99, 0.01], [0.03, 0.97]])
+    dwell_values, dwell_cdf, has_dwell = build_dwell_tables(None)
+    return RegimeParams(
+        transition=transition,
+        dwell_values=dwell_values, dwell_cdf=dwell_cdf, has_dwell=has_dwell,
+        p_stay=np.clip(np.diag(transition), 0.80, 0.995),
+        daily_std=np.array([0.008, 0.022]),
+        daily_mean=np.array([0.0005, -0.0005]),
+        start_probs=np.array([cfg.START_REGIME_PROBABILITIES[r]
+                              for r in range(R)]))
+
+
+def default_vix_params() -> VixParams:
+    return VixParams(
+        phi=np.array([0.90, 0.90]),
+        noise_std=np.array([1.25, 1.25]),
+        jump_threshold=np.array([2.0, 2.0]),
+        jump_scale=np.array([6.0, 9.0]),
+        target=np.array([15.0, 35.0]),
+        base=np.array([15.0, 35.0]))
+
+
+def default_stress_params() -> StressParams:
+    return StressParams(
+        liq_mu=np.array([0.10, 0.35]), liq_phi=np.array([0.90, 0.90]),
+        liq_sigma=np.array([0.08, 0.08]),
+        credit_mu=np.array([0.05, 0.25]), credit_phi=np.array([0.88, 0.88]),
+        credit_sigma=np.array([0.07, 0.07]),
+        jump_base_prob=np.array([0.0002, 0.001]),
+        jump_scale=np.array([0.0005, 0.002]))
+
+
+def default_funding_params() -> FundingParams:
+    return FundingParams(
+        base=np.float64(0.0050), beta_vix=np.float64(0.00035),
+        beta_inv_curve=np.float64(0.0014), beta_liquidity=np.float64(0.0010),
+        beta_credit=np.float64(0.0014), min_spread=np.float64(0.0030),
+        max_spread=np.float64(0.0450))
+
+
+def default_tracking_params() -> TrackingParams:
+    table = cfg.asset_table()
+    return TrackingParams(
+        rho=np.full(A, 0.25),
+        downside_mult=np.full(A, 1.10),   # min(calibrated 1.25, cap 1.10)
+        clip_limit=np.full(A, 0.15),
+        te_scale=table.te_base.copy(),
+        te_df=table.te_df.copy())
+
+
+def default_asset_params() -> AssetParams:
+    table = cfg.asset_table()
+    return AssetParams(
+        leverage=table.leverage, expense_ratio=table.expense_ratio,
+        underlying=table.underlying, beta=table.beta,
+        fallback_spread=table.borrow_spread)
+
+
+def build_sim_model(regime_model: Optional[Dict] = None) -> SimModel:
+    """Densify a calibration output dict (same keys the reference threads
+    through ``regime_model``: regime_params, transition_matrix,
+    duration_samples, vix_dynamics, joint_return_model, funding_model,
+    stress_state_model, tracking_residual_model) into a SimModel pytree.
+    Missing pieces fall back to the reference-default parameterization."""
+    if regime_model is None:
+        return default_sim_model()
+
+    m = default_sim_model()
+
+    # ---- regime block ----
+    tm = regime_model.get("transition_matrix", None)
+    rp = regime_model.get("regime_params", None)
+    ds = regime_model.get("duration_samples", None)
+    if tm is not None:
+        tm = np.asarray(tm, np.float64)
+        tm = np.nan_to_num(tm, nan=0.0, posinf=0.0, neginf=0.0)
+        tm[tm < 0] = 0.0
+        for i in range(tm.shape[0]):
+            rs = tm[i].sum()
+            if rs <= 0:
+                tm[i, i] = 1.0
+            else:
+                tm[i] = tm[i] / rs
+    else:
+        tm = m.regime.transition
+    dwell_values, dwell_cdf, has_dwell = build_dwell_tables(ds)
+    daily_std = m.regime.daily_std.copy()
+    daily_mean = m.regime.daily_mean.copy()
+    if rp is not None:
+        for r in range(R):
+            p = rp.get(r, {})
+            daily_std[r] = p.get("daily_std", daily_std[r])
+            daily_mean[r] = p.get("daily_mean", daily_mean[r])
+    regime = RegimeParams(
+        transition=tm, dwell_values=dwell_values, dwell_cdf=dwell_cdf,
+        has_dwell=has_dwell, p_stay=np.clip(np.diag(tm), 0.80, 0.995),
+        daily_std=daily_std, daily_mean=daily_mean,
+        start_probs=m.regime.start_probs)
+
+    # ---- joint return model ----
+    jm = regime_model.get("joint_return_model", None)
+    if jm is not None:
+        regs = jm["regimes"]
+        joint = derive_joint_params(
+            mu=np.stack([np.asarray(regs[r]["mu"]) for r in range(R)]),
+            cov=np.stack([np.asarray(regs[r]["cov"]) for r in range(R)]),
+            nu=[float(regs[r]["nu"]) for r in range(R)],
+            alpha=[float(regs[r].get("garch_alpha", 0.06)) for r in range(R)],
+            beta=[float(regs[r].get("garch_beta", 0.90)) for r in range(R)],
+            dcc_a=[float(regs[r].get("dcc_a", 0.02)) for r in range(R)],
+            dcc_b=[float(regs[r].get("dcc_b", 0.95)) for r in range(R)])
+    else:
+        joint = m.joint
+
+    # ---- VIX dynamics ----
+    vd = regime_model.get("vix_dynamics", None)
+    if vd:
+        vix = VixParams(
+            phi=np.array([vd.get(r, {}).get("phi", 0.88) for r in range(R)]),
+            noise_std=np.array([vd.get(r, {}).get("noise_std", 1.2)
+                                for r in range(R)]),
+            jump_threshold=np.array([vd.get(r, {}).get("jump_threshold_sigma", 2.0)
+                                     for r in range(R)]),
+            jump_scale=np.array([vd.get(r, {}).get("jump_scale", 8.0)
+                                 for r in range(R)]),
+            target=np.array([vd.get(r, {}).get("target_vix",
+                                               15.0 if r == 0 else 35.0)
+                             for r in range(R)]),
+            base=np.array([15.0, 35.0]))
+    else:
+        vix = m.vix
+
+    # ---- stress ----
+    sm = regime_model.get("stress_state_model", None)
+    if sm:
+        sr = sm["regimes"]
+
+        def g(key, default):
+            return np.array([sr.get(r, {}).get(key, default) for r in range(R)])
+        stress = StressParams(
+            liq_mu=g("liq_mu", 0.1), liq_phi=g("liq_phi", 0.9),
+            liq_sigma=g("liq_sigma", 0.08),
+            credit_mu=g("credit_mu", 0.05), credit_phi=g("credit_phi", 0.88),
+            credit_sigma=g("credit_sigma", 0.07),
+            jump_base_prob=g("jump_base_prob", 0.001),
+            jump_scale=g("jump_scale", 0.005))
+    else:
+        stress = m.stress
+
+    # ---- funding ----
+    fm = regime_model.get("funding_model", None)
+    if fm:
+        funding = FundingParams(
+            base=np.float64(fm["base"]), beta_vix=np.float64(fm["beta_vix"]),
+            beta_inv_curve=np.float64(fm["beta_inv_curve"]),
+            beta_liquidity=np.float64(fm.get("beta_liquidity", 0.0012)),
+            beta_credit=np.float64(fm.get("beta_credit", 0.0018)),
+            min_spread=np.float64(fm["min_spread"]),
+            max_spread=np.float64(fm["max_spread"]))
+    else:
+        funding = m.funding
+
+    # ---- tracking residuals (per-asset overrides; config-level te base) ----
+    trm = regime_model.get("tracking_residual_model", None)
+    tracking = m.tracking
+    if trm:
+        rho = tracking.rho.copy()
+        downside = tracking.downside_mult.copy()
+        clip_limit = tracking.clip_limit.copy()
+        for name, p in trm.items():
+            if name in cfg.ASSET_INDEX:
+                i = cfg.ASSET_INDEX[name]
+                rho[i] = p.get("rho", rho[i])
+                # Execution-noise cap (engine.py:392-396): downside <= 1.10.
+                downside[i] = min(p.get("downside_mult", downside[i]), 1.10)
+                clip_limit[i] = p.get("clip_limit", clip_limit[i])
+        tracking = TrackingParams(
+            rho=rho, downside_mult=downside, clip_limit=clip_limit,
+            te_scale=tracking.te_scale, te_df=tracking.te_df)
+
+    return SimModel(
+        regime=regime, joint=joint, vix=vix, irx_base=m.irx_base,
+        stress=stress, funding=funding, tracking=tracking,
+        assets=m.assets, cash_rate=m.cash_rate)
+
+
+def default_sim_model() -> SimModel:
+    return SimModel(
+        regime=default_regime_params(),
+        joint=default_joint_params(),
+        vix=default_vix_params(),
+        irx_base=np.array([3.5, 1.5]),
+        stress=default_stress_params(),
+        funding=default_funding_params(),
+        tracking=default_tracking_params(),
+        assets=default_asset_params(),
+        cash_rate=np.array([cfg.CASH_RATE_BY_REGIME[r] for r in range(R)]))
+
+
+PARTS = {"regime": RegimeParams, "joint": JointParams, "vix": VixParams,
+         "stress": StressParams, "funding": FundingParams,
+         "tracking": TrackingParams, "assets": AssetParams}
+
+
+def from_jax_model(m) -> SimModel:
+    """The JAX package's ``SimModel`` (numpy leaves) as the port's tree,
+    field by field; raises if a part or field name differs."""
+
+    def walk(node, cls):
+        fields = getattr(node, "_fields", None)
+        if fields != cls._fields:
+            raise ValueError(f"{cls.__name__}: fields {fields} differ from "
+                             f"{cls._fields}")
+        return cls(*(walk(getattr(node, f), PARTS[f]) if f in PARTS
+                     else np.asarray(getattr(node, f)) for f in fields))
+
+    return walk(m, SimModel)
+
+
+def as_sim_model(model) -> SimModel:
+    """The port's SimModel from a SimModel, a calibration dict or None (the
+    reference defaults); a SimModel of the JAX package is carried across by
+    ``from_jax_model``."""
+    if isinstance(model, SimModel):
+        return model
+    if getattr(model, "_fields", None) == SimModel._fields:
+        return from_jax_model(model)
+    return build_sim_model(model)
 
 
 def from_numpy(model: SimModel, device, dtype: torch.dtype) -> SimModel:

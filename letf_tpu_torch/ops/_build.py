@@ -35,6 +35,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _U = ctypes.c_uint
+_F = ctypes.c_float
 # C signatures of the entries (csrc/*.cu); the last argument is the stream.
 SIGNATURES = {
     "letf_joint": [_P, _P, _I, _P, _P, _P, _U, _U, _I, _I,
@@ -46,6 +47,8 @@ SIGNATURES = {
                      _P, _P, _P, _P, _P, _P],
     "letf_merge": [_I, _P, _P, _I, _I, _I, _P],
     "letf_wash": [_P, _P, _P, _I, _I, _P, _P, _P, _P],
+    "letf_strategies": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P],
+    "letf_gbm": [_U, _U, _I, _I, _F, _F, _F, _F, _P, _P, _P],
 }
 
 _lib = None

@@ -23,7 +23,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from letf_tpu import config as cfg
+from letf_tpu_torch import config as cfg
 from letf_tpu_torch.ops import _build
 from letf_tpu_torch.ops import rng
 from letf_tpu_torch.ops.joint import box_muller

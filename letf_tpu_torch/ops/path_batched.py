@@ -33,12 +33,12 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from letf_tpu import config as cfg
+from letf_tpu_torch import config as cfg
 from letf_tpu_torch.models import params as tparams
 from letf_tpu_torch.ops import rng
 from letf_tpu_torch.ops.compose import compose_generate
 from letf_tpu_torch.ops.joint import joint_generate
-from letf_tpu_torch.ops.window import window_offsets
+from letf_tpu_torch.ops.window import window_offsets, window_tiles
 from letf_tpu_torch.utils.device import index_dtype
 
 
@@ -193,27 +193,32 @@ def simulate_regime_paths_spell(model, keys, start_regime, total_days: int,
     return completed.to(out_dtype)
 
 
-def window_series(chans, start_offset, sim_days: int, biases=()):
-    """Kernel K2' of the general path (``path_batched.window_series`` on
-    ``window_offsets_pallas``) and the slab chunk's K2: out[s, b] =
-    x[s + start_offset[b], b] (+ bias[b]) for [T, B] channels; no window
-    when T == sim_days (every offset is 0 then)."""
+def window_series(chans, start_offset, sim_days: int, biases=(),
+                  general: bool = False):
+    """The random-start window out[s, b] = x[s + start_offset[b], b]
+    (+ bias[b]) of [T, B] channels: the slab chunk's K2
+    (``window_offsets``) or, ``general``, the general path's K2'
+    (``window_tiles``; ``path_batched.window_series`` on
+    ``window_offsets_pallas``); no window when T == sim_days (every offset
+    is 0 then)."""
     biases = list(biases) + [None] * (len(chans) - len(biases))
     if chans[0].shape[0] == sim_days:
         return [c if b is None else c + b[None, :]
                 for c, b in zip(chans, biases)]
-    return window_offsets(list(chans), start_offset.to(torch.int32),
-                          sim_days, biases=biases)
+    fn = window_tiles if general else window_offsets
+    return fn(list(chans), start_offset.to(torch.int32), sim_days,
+              biases=biases)
 
 
 def windowed_chain(model, run_key, trial_ids, antithetic, sim_days: int,
                    buffer_days: int = 0, random_start_method: str = "offset",
                    anchors=None, moment_matching: bool = True,
-                   max_spells: int | None = None):
+                   max_spells: int | None = None, general: bool = False):
     """Start conditions, regime spells, K1 (joint), the moment-matching
     bias 0.1 * (theoretical mean - the trial's mean over all T days) and
-    the K2 window. ``model``: the port's torch SimModel on the device of
-    ``trial_ids``; ``run_key``: a threefry key. Returns (StartConditions,
+    the window (K2, or K2' on the ``general`` path). ``model``: the
+    port's torch SimModel on the device of ``trial_ids``; ``run_key``: a
+    threefry key. Returns (StartConditions,
     int32 ids, seed words, windowed [spy, qqq, tlt, vix, irx, regime]
     [S, B] float32)."""
     T = sim_days + buffer_days
@@ -236,7 +241,7 @@ def windowed_chain(model, run_key, trial_ids, antithetic, sim_days: int,
         biases = [(theo[c] - xc.mean(dim=0)) * 0.1
                   for c, xc in enumerate((x0, x1, x2))]
     chans = window_series([x0, x1, x2, vix_full, irx_full, regime],
-                          sc.start_offset, sim_days, biases)
+                          sc.start_offset, sim_days, biases, general)
     return sc, ids32, seed_words, chans
 
 
@@ -296,7 +301,8 @@ def generate_paths_batched(model, run_key, trial_ids, antithetic,
     assets) and ``finish_path``."""
     sc, ids32, seed_words, chans = windowed_chain(
         model, run_key, trial_ids, antithetic, sim_days, buffer_days,
-        random_start_method, anchors, moment_matching, max_spells)
+        random_start_method, anchors, moment_matching, max_spells,
+        general=True)
     _, _, tlt, vix, irx, regime = chans
     etf, spy_a, qqq_a, cash, jc, ls, cs = compose_generate(
         tparams.pack_stress_params(model), tparams.pack_asset_params(model),

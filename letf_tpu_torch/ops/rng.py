@@ -17,6 +17,8 @@ Two families, both computed on int64 tensors that hold uint32 values
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 MASK32 = 0xFFFFFFFF
@@ -24,6 +26,14 @@ MASK32 = 0xFFFFFFFF
 # Stream ids (letf_tpu/ops/rng.py).
 START = 0
 REGIME = 1
+JOINT_EPS = 2
+JOINT_CHI = 3
+VIX_NOISE = 4
+IRX_NOISE = 5
+STRESS_NORM = 6
+STRESS_JUMP = 7
+TRACKING = 8
+BOOTSTRAP = 9
 
 # murmur3 finalizer constants and counter salts (pallas_joint.py:66-69).
 GOLD = 0x9E3779B9
@@ -83,10 +93,10 @@ def split(keys: torch.Tensor, num: int) -> torch.Tensor:
     return torch.stack([b1, b2], dim=-1)
 
 
-def _bit_pairs(keys: torch.Tensor, n: int):
+def _bit_pairs(keys: torch.Tensor, n: int, lo: int = 0):
     """Partitionable ``random_bits`` core: both threefry output words for
-    the flat counters 0..n-1 (high counter word 0, n < 2**32)."""
-    i = torch.arange(n, dtype=torch.int64, device=keys.device)
+    the flat counters lo..lo+n-1 (high counter word 0, counters < 2**32)."""
+    i = torch.arange(lo, lo + n, dtype=torch.int64, device=keys.device)
     return threefry2x32(keys[..., 0, None], keys[..., 1, None],
                         torch.zeros_like(i), i)
 
@@ -97,11 +107,11 @@ def random_bits(keys: torch.Tensor, n: int) -> torch.Tensor:
     return b1 ^ b2
 
 
-def uniform(keys: torch.Tensor, n: int = 1,
-            dtype: torch.dtype = torch.float32) -> torch.Tensor:
-    """``jax.random.uniform(k, (n,), dtype)`` in [0, 1) per key:
-    ``[..., n]``. float32 uses 32 random bits, float64 64 (x64 mode)."""
-    b1, b2 = _bit_pairs(keys, n)
+def _unit_floats(keys: torch.Tensor, n: int, dtype: torch.dtype,
+                 lo: int = 0) -> torch.Tensor:
+    """The [1, 2) mantissa fill of ``jax.random.uniform`` minus 1, for the
+    flat counters lo..lo+n-1: ``[..., n]`` in [0, 1)."""
+    b1, b2 = _bit_pairs(keys, n, lo)
     if dtype == torch.float32:
         fb = (((b1 ^ b2) >> 9) | 0x3F800000).to(torch.int32)
         f = fb.view(torch.float32) - 1.0
@@ -111,7 +121,14 @@ def uniform(keys: torch.Tensor, n: int = 1,
         f = fb.view(torch.float64) - 1.0
     else:
         raise TypeError(f"uniform: unsupported dtype {dtype}")
-    return torch.clamp_min(f, 0.0)
+    return f
+
+
+def uniform(keys: torch.Tensor, n: int = 1,
+            dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """``jax.random.uniform(k, (n,), dtype)`` in [0, 1) per key:
+    ``[..., n]``. float32 uses 32 random bits, float64 64 (x64 mode)."""
+    return torch.clamp_min(_unit_floats(keys, n, dtype), 0.0)
 
 
 def randint(keys: torch.Tensor, minval, maxval,
@@ -141,6 +158,205 @@ def randint(keys: torch.Tensor, minval, maxval,
     off = (hi_mod * mult + lo_mod) % span
     return (torch.as_tensor(minval, dtype=torch.int64, device=keys.device)
             + off).to(dtype)
+
+
+# ---- samplers: normal, gamma, t (jax._src.random) ----
+
+# XLA's erf_inv (chlo decomposition; M. Giles, "Approximating the erfinv
+# function"): Horner coefficients, highest degree first.
+_ERFINV_F32 = (
+    (2.81022636e-08, 3.43273939e-07, -3.5233877e-06, -4.39150654e-06,
+     0.00021858087, -0.00125372503, -0.00417768164, 0.246640727,
+     1.50140941),
+    (-0.000200214257, 0.000100950558, 0.00134934322, -0.00367342844,
+     0.00573950773, -0.0076224613, 0.00943887047, 1.00167406, 2.83297682))
+_ERFINV_F64 = (
+    (-3.6444120640178196996e-21, -1.685059138182016589e-19,
+     1.2858480715256400167e-18, 1.115787767802518096e-17,
+     -1.333171662854620906e-16, 2.0972767875968561637e-17,
+     6.6376381343583238325e-15, -4.0545662729752068639e-14,
+     -8.1519341976054721522e-14, 2.6335093153082322977e-12,
+     -1.2975133253453532498e-11, -5.4154120542946279317e-11,
+     1.051212273321532285e-09, -4.1126339803469836976e-09,
+     -2.9070369957882005086e-08, 4.2347877827932403518e-07,
+     -1.3654692000834678645e-06, -1.3882523362786468719e-05,
+     0.0001867342080340571352, -0.00074070253416626697512,
+     -0.0060336708714301490533, 0.24015818242558961693,
+     1.6536545626831027356),
+    (2.2137376921775787049e-09, 9.0756561938885390979e-08,
+     -2.7517406297064545428e-07, 1.8239629214389227755e-08,
+     1.5027403968909827627e-06, -4.013867526981545969e-06,
+     2.9234449089955446044e-06, 1.2475304481671778723e-05,
+     -4.7318229009055733981e-05, 6.8284851459573175448e-05,
+     2.4031110387097893999e-05, -0.0003550375203628474796,
+     0.00095328937973738049703, -0.0016882755560235047313,
+     0.0024914420961078508066, -0.0037512085075692412107,
+     0.005370914553590063617, 1.0052589676941592334,
+     3.0838856104922207635),
+    (-2.7109920616438573243e-11, -2.5556418169965252055e-10,
+     1.5076572693500548083e-09, -3.7894654401267369937e-09,
+     7.6157012080783393804e-09, -1.4960026627149240478e-08,
+     2.9147953450901080826e-08, -6.7711997758452339498e-08,
+     2.2900482228026654717e-07, -9.9298272942317002539e-07,
+     4.5260625972231537039e-06, -1.9681778105531670567e-05,
+     7.5995277030017761139e-05, -0.00021503011930044477347,
+     -0.00013871931833623122026, 1.0103004648645343977,
+     4.8499064014085844221))
+
+
+def erf_inv(x: torch.Tensor) -> torch.Tensor:
+    """XLA's erf_inv in the dtype of x (f32: one of two degree-8 fits by
+    w = -log1p(-x^2) < 5; f64: three fits split at w = 6.25 and 16);
+    +-1 map to +-inf."""
+    w = -torch.log1p(-x * x)
+    if x.dtype == torch.float32:
+        small, big = _ERFINV_F32
+        lt = w < 5.0
+        w = torch.where(lt, w - 2.5, torch.sqrt(w) - 3.0)
+        p = torch.where(lt, small[0], big[0]).to(x.dtype)
+        for a, b in zip(small[1:], big[1:]):
+            p = torch.where(lt, a, b).to(x.dtype) + p * w
+    elif x.dtype == torch.float64:
+        c6, c16, cbig = _ERFINV_F64
+        l6, l16 = w < 6.25, w < 16.0
+
+        def coef(i):
+            c = torch.full_like(x, c6[i])
+            if i < len(c16):
+                c = torch.where(l6, c, c16[i])
+            if i < len(cbig):
+                c = torch.where(l16, c, cbig[i])
+            return c
+
+        w = torch.where(l6, w - 3.125,
+                        torch.sqrt(w) - torch.where(l16, 3.25, 5.0))
+        p = coef(0)
+        for i in range(1, len(cbig)):
+            p = coef(i) + p * w
+        for i in range(len(cbig), len(c16)):
+            p = torch.where(l16, coef(i) + p * w, p)
+        for i in range(len(c16), len(c6)):
+            p = torch.where(l6, coef(i) + p * w, p)
+    else:
+        raise TypeError(f"erf_inv: unsupported dtype {x.dtype}")
+    return torch.where(x.abs() == 1.0, x * math.inf, p * x)
+
+
+def _blocks(B: int, n: int, block: int):
+    """Column ranges [lo, hi) of at most ``block`` draws over B keys."""
+    cols = max(1, block // max(B, 1))
+    return [(lo, min(n, lo + cols)) for lo in range(0, n, cols)]
+
+
+def normal(keys: torch.Tensor, n: int = 1,
+           dtype: torch.dtype = torch.float32, lo: int = 0,
+           block: int = 1 << 24) -> torch.Tensor:
+    """``jax.random.normal(k, shape, dtype)`` per key for the flat counters
+    lo..lo+n-1 of the shape: ``[..., n]``, computed in column blocks of at
+    most ``block`` draws (memory only; no value changes)."""
+    lead = keys.shape[:-1]
+    flat = keys.reshape(-1, 2)
+    out = torch.empty((flat.shape[0], n), dtype=dtype, device=keys.device)
+    one = torch.ones((), dtype=dtype, device=keys.device)
+    minval = torch.nextafter(-one, torch.zeros_like(one))
+    sqrt2 = torch.tensor(math.sqrt(2.0), dtype=dtype, device=keys.device)
+    for a, b in _blocks(flat.shape[0], n, block):
+        f = _unit_floats(flat, b - a, dtype, lo + a)
+        u = torch.maximum(minval, f * (one - minval) + minval)
+        out[:, a:b] = sqrt2 * erf_inv(u)
+    return out.reshape(*lead, n)
+
+
+def _scalar_normal(keys, dtype):
+    return normal(keys, 1, dtype)[..., 0]
+
+
+def _gamma_one(keys: torch.Tensor, alpha: float,
+               dtype: torch.dtype) -> torch.Tensor:
+    """``jax._src.random._gamma_one`` over flat element keys [M, 2]
+    (Marsaglia-Tsang): each rejection round takes split(key, 3) -> (next
+    key, x key, U key), an inner loop redraws the normal while v <= 0 with
+    split(x key), and the accepted elements are frozen. alpha < 1 is
+    boosted to alpha + 1 and scaled by U^(1/alpha)."""
+    dev = keys.device
+    a0 = torch.tensor(alpha, dtype=dtype, device=dev)
+    boost = alpha >= 1.0
+    a = a0 if boost else a0 + 1.0
+    third = torch.tensor(1.0 / 3.0, dtype=dtype, device=dev)
+    d = a - third
+    c = third / torch.sqrt(d)
+    sq = torch.tensor(0.0331, dtype=dtype, device=dev)
+    k2 = split(keys, 2)
+    key, subkey = k2[:, 0].clone(), k2[:, 1]
+    M = keys.shape[0]
+    V = torch.empty(M, dtype=dtype, device=dev)
+    active = torch.arange(M, device=dev)
+    while active.numel():
+        k3 = split(key[active], 3)
+        key[active] = k3[:, 0]
+        kx = k3[:, 1].clone()
+        x = torch.zeros(active.numel(), dtype=dtype, device=dev)
+        v = torch.full_like(x, -1.0)
+        inner = torch.arange(active.numel(), device=dev)
+        while inner.numel():
+            s2 = split(kx[inner], 2)
+            kx[inner] = s2[:, 0]
+            xi = _scalar_normal(s2[:, 1], dtype)
+            vi = 1.0 + xi * c
+            x[inner] = xi
+            v[inner] = vi
+            inner = inner[vi <= 0.0]
+        X = x * x
+        Vv = (v * v) * v
+        U = uniform(k3[:, 2], 1, dtype)[:, 0]
+        rejected = ((U >= 1.0 - sq * (X * X))
+                    & (torch.log(U) >= X * 0.5
+                       + d * ((1.0 - Vv) + torch.log(Vv))))
+        V[active] = Vv
+        active = active[rejected]
+    out = (d * V) * 1.0
+    if not boost:
+        u = 1.0 - uniform(subkey, 1, dtype)[:, 0]
+        out = (d * V) * torch.pow(u, 1.0 / a0)
+    return out
+
+
+def _gamma_cols(keys, alpha: float, lo: int, hi: int, dtype):
+    """Gamma draws of the flat elements lo..hi-1: element j's key is
+    split(key, n)[j], i.e. the threefry hash of the counter (0, j)."""
+    j = torch.arange(lo, hi, dtype=torch.int64, device=keys.device)
+    b1, b2 = threefry2x32(keys[:, 0, None], keys[:, 1, None],
+                          torch.zeros_like(j), j)
+    ek = torch.stack([b1, b2], dim=-1).reshape(-1, 2)
+    return _gamma_one(ek, alpha, dtype).reshape(keys.shape[0], hi - lo)
+
+
+def gamma(keys: torch.Tensor, alpha: float, n: int,
+          dtype: torch.dtype = torch.float32,
+          block: int = 1 << 24) -> torch.Tensor:
+    """``jax.random.gamma(k, alpha, shape, dtype)`` per key [B, 2], the
+    shape's n elements flat: ``[B, n]`` (``_gamma_impl``: one split key per
+    element), in column blocks of at most ``block`` draws."""
+    out = torch.empty((keys.shape[0], n), dtype=dtype, device=keys.device)
+    for lo, hi in _blocks(keys.shape[0], n, block):
+        out[:, lo:hi] = _gamma_cols(keys, alpha, lo, hi, dtype)
+    return out
+
+
+def t(keys: torch.Tensor, df: float, n: int,
+      dtype: torch.dtype = torch.float32,
+      block: int = 1 << 24) -> torch.Tensor:
+    """``jax.random.t(k, df, shape, dtype)`` per key [B, 2], flat: ``[B,
+    n]``. (normal key, gamma key) = split(key); the draw is
+    z * sqrt((df/2) / gamma(df/2)), in column blocks."""
+    ks = split(keys, 2)
+    half = torch.tensor(df, dtype=dtype, device=keys.device) / 2.0
+    out = torch.empty((keys.shape[0], n), dtype=dtype, device=keys.device)
+    for lo, hi in _blocks(keys.shape[0], n, block):
+        z = normal(ks[:, 0], hi - lo, dtype, lo=lo)
+        g = _gamma_cols(ks[:, 1], float(half), lo, hi, dtype)
+        out[:, lo:hi] = z * torch.sqrt(half / g)
+    return out
 
 
 def trial_key(run_key: torch.Tensor, trial_ids) -> torch.Tensor:

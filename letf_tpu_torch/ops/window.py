@@ -1,11 +1,14 @@
-"""Per-trial random-start windowing (kernel K2).
+"""Per-trial random-start windowing (kernels K2 and K2').
 
-Port of ``letf_tpu/ops/pallas_window.py::_window_kernel_4d`` (entry
-``window_offsets_slab``) and of its transpose fallback ``_window_kernel``
-(``_window_tiles``): ``out[s, b] = x[s + off[b], b] (+ bias[b])``, bitwise
-a gather, NaN payloads included. The TPU kernels' shift-select tree and
-lookahead tails worked around the lack of a fast gather; on the GPU it is a
-direct offset load (``csrc/window.cu``), up to six channels per launch.
+Port of ``letf_tpu/ops/pallas_window.py::_window_kernel_4d`` (K2, entry
+``window_offsets_slab``: ``window_offsets`` here, the production chunk's)
+and of ``_window_kernel`` (K2', entries ``_window_tiles`` and
+``window_offsets_pallas``: ``window_tiles`` here, the general path's):
+``out[s, b] = x[s + off[b], b] (+ bias[b])``, bitwise a gather, NaN
+payloads included. The TPU kernels' shift-select tree and lookahead tails
+worked around the lack of a fast gather; on the GPU both are one direct
+offset load (``csrc/window.cu``), up to six channels per launch; each
+entry counts its own launches.
 
 Layout ``[T, B]`` in, ``[S, B]`` out. Offsets must lie in [0, T - S].
 """
@@ -18,7 +21,8 @@ import torch
 
 from letf_tpu_torch.ops import _build
 
-LAUNCHES = 0            # kernel launches by window_offsets on CUDA tensors
+LAUNCHES = 0            # kernel launches by window_offsets (K2)
+LAUNCHES_TILES = 0      # kernel launches by window_tiles (K2')
 MAX_CHANNELS = 6
 
 
@@ -43,6 +47,24 @@ def window_offsets(xs, offs, sim_days: int, biases=None):
     biases = list(biases) if biases is not None else [None] * len(xs)
     if offs.device.type == "cpu":
         return window_plain(xs, offs, sim_days, biases)
+    outs = _launch(xs, offs, sim_days, biases)
+    LAUNCHES += 1
+    return outs
+
+
+def window_tiles(xs, offs, sim_days: int, biases=None):
+    """K2' (the general path's window): as ``window_offsets``."""
+    global LAUNCHES_TILES
+    biases = list(biases) if biases is not None else [None] * len(xs)
+    if offs.device.type == "cpu":
+        return window_plain(xs, offs, sim_days, biases)
+    outs = _launch(xs, offs, sim_days, biases)
+    LAUNCHES_TILES += 1
+    return outs
+
+
+def _launch(xs, offs, sim_days: int, biases):
+    """One launch of csrc/window.cu for up to six CUDA channels."""
     if not 0 < len(xs) <= MAX_CHANNELS or len(biases) != len(xs):
         raise ValueError(f"window_offsets: 1..{MAX_CHANNELS} channels")
     T, B = xs[0].shape
@@ -76,5 +98,4 @@ def window_offsets(xs, offs, sim_days: int, biases=None):
                          offs.data_ptr(), T, sim_days, B,
                          _build.stream_of(offs))
     _build.check(rc, "letf_window")
-    LAUNCHES += 1
     return outs

@@ -11,11 +11,14 @@ one that trades the SPY leg); the tax spread over all N trials by linear
 interpolation on the sampled wealths; post-tax fans and win rates vs SPY
 reduced on the device.
 
+The port keeps its own copies of the reference's tax configuration
+(``DEFAULT_TAX_CONFIG``, ``MAX_TAX_SIMS``, ``_income_kwargs``) and of the
+income path (``letf_tpu_torch/income.py``).
+
 The interpolation is a plain index lookup (``torch.searchsorted`` plus
 gathers) in the working precision; the reference's one-hot matmul was a
 TPU workaround. The bridge and tax run in the glue dtype (float64 on the
-CPU, float32 on the card, as on the TPU); the configuration tables come
-from the NumPy-only ``letf_tpu.reporting`` and ``letf_tpu.income``.
+CPU, float32 on the card, as on the TPU).
 """
 
 from __future__ import annotations
@@ -26,12 +29,27 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from letf_tpu import config as cfg
-from letf_tpu.income import simulate_wired_income_path
-from letf_tpu.reporting import DEFAULT_TAX_CONFIG, MAX_TAX_SIMS, _income_kwargs
+from letf_tpu_torch import config as cfg
+from letf_tpu_torch.income import simulate_wired_income_path
 from letf_tpu_torch.tax.device_bridge import yearly_activity_from_emission
 from letf_tpu_torch.tax.vectorized import total_tax_all_trials
 from letf_tpu_torch.utils.device import glue_dtype
+
+# The reference's sampled-tax budget and default tax configuration
+# (letf_tpu/reporting.py:42-51).
+MAX_TAX_SIMS = 50
+DEFAULT_TAX_CONFIG = {
+    "state": "CA", "state_name": "California",
+    "ordinary_income": 150000, "filing_status": "single",
+    "career_stage": "mid", "years_until_retirement": None,
+    "retirement_income": None,
+}
+
+
+def _income_kwargs(tax_config: Dict) -> Dict:
+    return dict(
+        years_until_retirement=tax_config.get("years_until_retirement"),
+        retirement_income=tax_config.get("retirement_income"), seed=42)
 
 
 def interp(w, xp, fp):

@@ -1,8 +1,10 @@
 """All 19 strategies over a path batch, with trade-journal emission.
 
-Port of ``letf_tpu/strategies/engine.py::run_strategies_batch`` with
-``emit_trades=True`` (the XLA scan of the general path), plus
-``dca_schedule`` and ``withdrawal_schedule``. Quirks kept as the reference
+Port of ``letf_tpu/strategies/engine.py::run_strategies_batch``, plus
+``dca_schedule`` and ``withdrawal_schedule``. Without emission it is kernel
+K4 (``ops/strategies.py``, channel mode) on any device, as the JAX
+package's production path runs ``pallas_strategies_run``; with emission it
+is the XLA scan of the general path, below. Quirks kept as the reference
 keeps them: S7 earns no cash on its idle fraction, S8 charges no costs and
 journals its target's asset, S9 freezes on NaN-signal days, S19 rebalances
 past a 5% threshold and journals its candidate allocation, S6 re-estimates
@@ -18,10 +20,6 @@ running maxima and drawdowns, S6's sleeves and S19's thresholded
 allocation. The elementwise arithmetic is the reference's, so the split
 changes no value. Equity is floored at 0, and below float32's smallest
 normal it is ruin (0) as in the reference's flush-to-zero arithmetic.
-
-The non-emitting production strategies are kernel K4 on the TPU, not yet
-ported: on a CUDA tensor ``emit_trades=False`` raises; on the CPU it runs
-this plain loop.
 """
 
 from __future__ import annotations
@@ -31,8 +29,9 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from letf_tpu import config as cfg
+from letf_tpu_torch import config as cfg
 from letf_tpu_torch.ops import rolling as rl
+from letf_tpu_torch.ops import strategies as k4
 from letf_tpu_torch.strategies.signals import (
     IDX_SPY,
     IDX_SSO,
@@ -147,13 +146,16 @@ def run_strategies_batch(path, sig: SignalSet, apply_costs: bool = True,
                          cashflows=None) -> StrategyResults:
     """Run S1-S19 over a path batch (the port's PathOutputs, ``[S, B]``
     per-day fields). ``cashflows``: optional [S] per-day dollar flows
-    applied to every strategy's equity after the day's return."""
+    applied to every strategy's equity after the day's return. Without
+    emission: kernel K4 on the 23 channels of the path and its signals
+    (its plain version on the CPU)."""
+    if not emit_trades:
+        cf = (None if cashflows is None
+              else torch.as_tensor(cashflows).to(path.vix.device))
+        fw, nt, mdd = k4.strategies_run(k4.channels_from(path, sig),
+                                        cashflows=cf, apply_costs=apply_costs)
+        return StrategyResults(fw, nt, mdd, None, None, None, None)
     etf = path.etf_ret
-    if not emit_trades and etf.device.type == "cuda":
-        raise NotImplementedError(
-            "run_strategies_batch(emit_trades=False) on the card is kernel "
-            "K4 (pallas_strategies channel modes), ROADMAP section 2 item "
-            "2.4, not ported yet; the plain loop never stands in for it")
     A, S, B = etf.shape
     dt, dev = etf.dtype, etf.device
     r_tqqq, r_spy, r_sso, r_tmf = (etf[i] for i in (IDX_TQQQ, IDX_SPY,
@@ -165,6 +167,12 @@ def run_strategies_batch(path, sig: SignalSet, apply_costs: bool = True,
     spy_asset_price = sig.prices[IDX_SPY]
     first = torch.zeros((S, 1), dtype=torch.bool, device=dev)
     first[0] = True
+
+    def pick(cond, a: float, b):
+        """torch.where with the constant a in the path's dtype (two Python
+        floats would make a float32 tensor, where JAX keeps them weak)."""
+        return torch.where(cond, torch.full(cond.shape, a, dtype=dt,
+                                            device=dev), b)
 
     pp = _prev(sig.spy_price)
     sma1 = _prev(sig.spy_sma200_mp1)
@@ -237,7 +245,7 @@ def run_strategies_batch(path, sig: SignalSet, apply_costs: bool = True,
     # ---- S9 adaptive vol target (skips NaN days entirely) ----
     v9 = _prev(sig.tqqq_std20_mp20)
     skip9 = torch.isnan(v9) | torch.isnan(sma200) | (v9 < 0.001)
-    cand9 = torch.clamp(torch.where(pp > sma200, 0.35, 0.12)
+    cand9 = torch.clamp(pick(pp > sma200, 0.35, 0.12)
                         / torch.where(skip9, 1.0, v9), 0.0, 1.0)
     held9 = _ffill(~skip9, cand9, 0.0)
     prev9 = _before(held9, 0.0)
@@ -276,7 +284,7 @@ def run_strategies_batch(path, sig: SignalSet, apply_costs: bool = True,
     vr16 = s5 / s60
     crisis16 = (vix > 25.0) | torch.where(torch.isnan(vr16), False,
                                           vr16 > 1.5)
-    target16 = torch.where(crisis16, 0.08, 0.30)
+    target16 = pick(crisis16, 0.08, 0.30)
     alloc[15] = torch.where(torch.isnan(s5) | (s5 < 0.001), 0.5,
                             torch.clamp(target16 / s5, 0.0, 1.2))
     vol17 = _guard(s20, 0.001, 0.25)
@@ -287,9 +295,8 @@ def run_strategies_batch(path, sig: SignalSet, apply_costs: bool = True,
                         torch.where(skew17 < 0, dvol17 * 1.2,
                                     torch.where(skew17 > 0.5, vol17 * 0.9,
                                                 vol17)))
-    pen17 = torch.where(skew17 < -0.5, 0.6,
-                        torch.where(skew17 < 0, 0.8,
-                                    torch.where(skew17 > 0.5, 1.2, 1.0)))
+    pen17 = pick(skew17 < -0.5, 0.6,
+                 pick(skew17 < 0, 0.8, pick(skew17 > 0.5, 1.2, 1.0)))
     kelly17 = torch.where(eff17 > 0.01,
                           torch.clamp((mean17 - 0.03) / (eff17 ** 2) * 0.7,
                                       0.2, 2.0), 1.0)
@@ -298,9 +305,9 @@ def run_strategies_batch(path, sig: SignalSet, apply_costs: bool = True,
     mom = _nan_to(_prev(sig.spy_sum126), 0.0)
     vf18 = _guard(s10, 0.001, 0.30)
     vs = _guard(s60, 0.001, 0.25)
-    mm18 = torch.where(mom > 0.05, 1.3, torch.where(mom > 0, 1.0, 0.5))
+    mm18 = pick(mom > 0.05, 1.3, pick(mom > 0, 1.0, 0.5))
     vr18 = vf18 / vs
-    vm18 = torch.where(vr18 < 0.8, 1.2, torch.where(vr18 > 1.3, 0.6, 1.0))
+    vm18 = pick(vr18 < 0.8, 1.2, pick(vr18 > 1.3, 0.6, 1.0))
     eff18 = torch.where((vr18 < 0.8) | (vr18 > 1.3), vf18, vs)
     alloc[17] = torch.clamp(0.28 * mm18 * vm18 / eff18, 0.0, 1.5)
     for i, a in alloc.items():
@@ -311,13 +318,11 @@ def run_strategies_batch(path, sig: SignalSet, apply_costs: bool = True,
     # ---- S19 conviction compounder: candidate from signals ----
     dv19 = _guard(d20, 0.001, 0.20)
     vf19 = _guard(s5, 0.001, 0.30)
-    mom_score = torch.where(mom > 0.15, 1.0,
-                            torch.where(mom > 0.05, 0.7,
-                                        torch.where(mom > 0, 0.4, 0.0)))
-    trend_score = torch.where(_bull(pp, _prev(sig.spy_sma100_mp1)), 0.5, 0.0)
+    mom_score = pick(mom > 0.15, 1.0,
+                     pick(mom > 0.05, 0.7, pick(mom > 0, 0.4, 0.0)))
+    trend_score = pick(_bull(pp, _prev(sig.spy_sma100_mp1)), 0.5, 0.0)
     vr19 = vf19 / vs
-    vol_score = torch.where(vr19 < 0.9, 0.5, torch.where(vr19 < 1.2, 0.3,
-                                                         0.0))
+    vol_score = pick(vr19 < 0.9, 0.5, pick(vr19 < 1.2, 0.3, 0.0))
     conviction = mom_score + trend_score + vol_score
     cand19 = torch.clamp((0.32 / dv19) * (0.3 + conviction * 0.55), 0.0, 1.5)
 
@@ -346,11 +351,9 @@ def run_strategies_batch(path, sig: SignalSet, apply_costs: bool = True,
     mdd = torch.zeros_like(eq)
     s6 = [torch.full((B,), INITIAL_CAPITAL * w, dtype=dt, device=dev)
           for w in S6_W]
-    value = (torch.empty((S, N_TAX, B), dtype=dt, device=dev)
-             if emit_trades else None)
+    value = torch.empty((S, N_TAX, B), dtype=dt, device=dev)
     for t in range(S):
-        if emit_trades:
-            value[t] = eq[TAX_OFFSET:]
+        value[t] = eq[TAX_OFFSET:]
         pg = [s6[0] * (1.0 + r_tqqq[t]), s6[1] * (1.0 + r_tmf[t])]
         total6 = pg[0] + pg[1]
         if t > 0 and t % 21 == 0:
@@ -384,16 +387,13 @@ def run_strategies_batch(path, sig: SignalSet, apply_costs: bool = True,
 
     trades = torch.stack(traded, dim=1)[1:].sum(0, dtype=torch.int32)
     trades[5] *= 2                                  # S6 counts 2 per rebalance
-    out = dict(final_wealth=eq.t(), num_trades=trades.t(), max_dd=mdd.t(),
-               tj_alloc=None, tj_value=None, tj_price=None, tj_asset=None)
-    if emit_trades:
-        cols = [jr[c] for c in range(N_TAX)]
-        out["tj_alloc"] = torch.stack(
-            [torch.where(do & ~first, a, float("nan")) for do, a, _, _ in cols],
-            dim=-1)
-        out["tj_value"] = value.permute(0, 2, 1)
-        out["tj_price"] = torch.stack([p for _, _, p, _ in cols], dim=-1)
-        out["tj_asset"] = torch.stack(
+    cols = [jr[c] for c in range(N_TAX)]
+    return StrategyResults(
+        final_wealth=eq.t(), num_trades=trades.t(), max_dd=mdd.t(),
+        tj_alloc=torch.stack([torch.where(do & ~first, a, float("nan"))
+                              for do, a, _, _ in cols], dim=-1),
+        tj_value=value.permute(0, 2, 1),
+        tj_price=torch.stack([p for _, _, p, _ in cols], dim=-1),
+        tj_asset=torch.stack(
             [torch.full((S, B), a, dtype=torch.int8, device=dev)
-             if isinstance(a, int) else a for _, _, _, a in cols], dim=-1)
-    return StrategyResults(**out)
+             if isinstance(a, int) else a for _, _, _, a in cols], dim=-1))

@@ -14,7 +14,7 @@ from typing import Dict, List
 
 import numpy as np
 
-from letf_tpu import config as cfg
+from letf_tpu_torch import config as cfg
 
 
 @dataclasses.dataclass

@@ -13,7 +13,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from letf_tpu import config as cfg
+from letf_tpu_torch import config as cfg
 from letf_tpu_torch.ops import rolling as rl
 
 SQ252 = float(np.sqrt(252.0))

@@ -24,7 +24,7 @@ from __future__ import annotations
 
 import torch
 
-from letf_tpu import config as cfg
+from letf_tpu_torch import config as cfg
 from letf_tpu_torch.ops.sort_bridge import sort_bridge
 from letf_tpu_torch.ops.wash import wash_matching
 

@@ -2,11 +2,10 @@
 
 Port of ``letf_tpu/tax/vectorized.py``: ``_piecewise``, ``_inflated_tax``,
 ``net_years`` (a loop over the Y years), ``comprehensive_tax`` and
-``total_tax_all_trials``. The statute itself is not copied: netting calls
-``letf_tpu.tax.engine._net_core`` through its ``xp=(minimum, maximum)``
-pair with torch versions that accept Python-float operands, and the bracket
-tables come from ``letf_tpu.tax.brackets``. Tensors run in the dtype of the
-yearly activity.
+``total_tax_all_trials``. Netting calls the port's copy of the statute,
+``tax/engine.py::_net_core``, through its ``xp=(minimum, maximum)`` pair
+with torch versions that accept Python-float operands; the bracket tables
+are ``tax/brackets.py``. Tensors run in the dtype of the yearly activity.
 """
 
 from __future__ import annotations
@@ -15,7 +14,7 @@ from typing import Dict
 
 import torch
 
-from letf_tpu.tax.brackets import (
+from letf_tpu_torch.tax.brackets import (
     FEDERAL_TAX_BRACKETS_2024,
     LTCG_BRACKETS_2024,
     NIIT_RATE,
@@ -24,7 +23,7 @@ from letf_tpu.tax.brackets import (
     STATE_TAX_BRACKETS,
     bracket_arrays,
 )
-from letf_tpu.tax.engine import CapitalLossUsageStrategy, _net_core
+from letf_tpu_torch.tax.engine import CapitalLossUsageStrategy, _net_core
 
 _BRACKET_INFLATION = 0.025
 _MARGIN_RATE = 0.06

@@ -1,13 +1,14 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the
 card. Marked ``cuda``; without a card every test skips (decided inside the
-fixture). On a GPU machine: ``python -m pytest -m cuda tests/test_torch_cuda.py``."""
+fixture). Nothing here needs JAX. On a GPU machine:
+``python -m pytest -m cuda tests/test_torch_cuda.py``."""
 
 import numpy as np
 import pytest
 import torch
 
-from letf_tpu.models.params import default_sim_model
 from letf_tpu_torch.models import params as tparams
+from letf_tpu_torch.models.params import default_sim_model
 from letf_tpu_torch.ops import compose_strategies as k3
 from letf_tpu_torch.ops import joint, window
 
@@ -165,9 +166,11 @@ def test_wash_kernel_bitwise(dev):
 
 
 def test_emitting_engine_refuses_without_emission_on_the_card(dev):
-    """The non-emitting strategies are kernel K4 (ROADMAP 2.4), not yet
-    ported: the plain loop never stands in for it on the card."""
+    """Without emission the engine is kernel K4 on the card (one launch),
+    never the plain loop; its summaries agree with the emitting engine's
+    on the same path within compose_strategies.check_parity's bounds."""
     from letf_tpu_torch.ops import rng
+    from letf_tpu_torch.ops import strategies as k4
     from letf_tpu_torch.ops.path_batched import generate_paths_batched
     from letf_tpu_torch.parallel.mc_runner import from_numpy
     from letf_tpu_torch.strategies.engine import run_strategies_batch
@@ -177,5 +180,52 @@ def test_emitting_engine_refuses_without_emission_on_the_card(dev):
     rows = torch.arange(64, device=dev)
     path = generate_paths_batched(mt, rng.key(1, dev), rows // 2,
                                   rows % 2 == 1, sim_days=S)
-    with pytest.raises(NotImplementedError, match="2.4"):
-        run_strategies_batch(path, compute_signals(path), emit_trades=False)
+    sig = compute_signals(path)
+    n0 = k4.LAUNCHES
+    got = run_strategies_batch(path, sig, emit_trades=False)
+    assert k4.LAUNCHES == n0 + 1 and got.tj_alloc is None
+    ref = run_strategies_batch(path, sig, emit_trades=True)
+    k3.check_parity(got._asdict(), ref._asdict())
+
+
+@pytest.mark.parametrize("fused,with_cashflows",
+                         [(False, False), (False, True), (True, False)])
+def test_strategies_kernel_matches_plain(dev, fused, with_cashflows):
+    """K4 in both modes (and with a DCA schedule) against its plain
+    version, within check_parity's bounds."""
+    from letf_tpu_torch.ops import rng
+    from letf_tpu_torch.ops import strategies as k4
+    from letf_tpu_torch.ops.path_batched import generate_paths_batched
+    from letf_tpu_torch.strategies.signals import compute_signals
+
+    mt = tparams.from_numpy(default_sim_model(), dev, torch.float32)
+    rows = torch.arange(B, device=dev)
+    path = generate_paths_batched(mt, rng.key(4, dev), rows // 2,
+                                  rows % 2 == 1, sim_days=T)
+    chans = k4.channels_from(path, compute_signals(path))
+    if fused:
+        chans = chans[:k4.N_FUSED]
+    cf = ((torch.arange(T, device=dev) % 21 == 0) * 500.0).float() \
+        if with_cashflows else None
+    n0 = k4.LAUNCHES
+    got = k4.strategies_run(chans, cashflows=cf, fused_signals=fused)
+    assert k4.LAUNCHES == n0 + 1
+    ref = k4.strategies_plain(chans, cashflows=cf, fused_signals=fused)
+    names = ("final_wealth", "num_trades", "max_dd")
+    k3.check_parity(dict(zip(names, got)), dict(zip(names, ref)))
+
+
+def test_gbm_kernel_matches_plain(dev):
+    """K6 against its plain version: the same counter bits and float32
+    operations (wealth within rtol 1e-5, drawdown within 1e-5), an odd day
+    count included."""
+    from letf_tpu_torch.ops import gbm
+
+    for days in (252, 63):
+        args = (5, 8192, days, 0.0004, 0.015, 3.0, 3e-5)
+        n0 = gbm.LAUNCHES
+        w, m = gbm.gbm_buyhold(*args, device=dev)
+        assert gbm.LAUNCHES == n0 + 1
+        wp, mp = gbm.gbm_plain(*args, device=dev)
+        torch.testing.assert_close(w, wp, rtol=1e-5, atol=0)
+        torch.testing.assert_close(m, mp, rtol=0, atol=1e-5)

@@ -14,6 +14,7 @@ import pytest
 import torch
 
 from letf_tpu import config as cfg
+from letf_tpu_torch import config as tcfg
 from letf_tpu.models.params import default_sim_model
 from letf_tpu.ops import pallas_joint, pallas_strategies, pallas_window
 from letf_tpu.ops.path_batched import plan_max_spells
@@ -91,7 +92,7 @@ def test_report_matches_jax_reductions(model, jax_ref, port_ref,
     """The port's pre-tax report on the same 1024 trials against numpy
     reductions of the JAX chunk (as tests/test_mc_runner.py:165 does for
     the JAX report), and exactly against the port's own raw arrays."""
-    monkeypatch.setattr(cfg, "RANDOM_START_BUFFER_YEARS", BUF / 252)
+    monkeypatch.setattr(tcfg, "RANDOM_START_BUFFER_YEARS", BUF / 252)
     rep = mc_runner.monte_carlo_report(
         model, SIM / 252, num_simulations=B, seed=SEED, chunk_size=B,
         tax_mode="none", device="cpu")
@@ -128,7 +129,7 @@ def test_report_matches_jax_reductions(model, jax_ref, port_ref,
 def test_run_monte_carlo_chunking_is_bitwise(model, monkeypatch):
     """Trials replay from (seed, trial id): two chunks of 512 equal one
     chunk of 1024 bit for bit."""
-    monkeypatch.setattr(cfg, "RANDOM_START_BUFFER_YEARS", BUF / 252)
+    monkeypatch.setattr(tcfg, "RANDOM_START_BUFFER_YEARS", BUF / 252)
     kw = dict(num_simulations=B, seed=SEED, device="cpu")
     one = mc_runner.run_monte_carlo(model, SIM / 252, chunk_size=B, **kw)
     two = mc_runner.run_monte_carlo(model, SIM / 252, chunk_size=B // 2,
@@ -142,27 +143,24 @@ def test_run_monte_carlo_chunking_is_bitwise(model, monkeypatch):
 
 
 def test_unported_modes_raise(model):
-    """exact_all and the per-trial engine modes raise naming their ROADMAP
-    items; the sampled default runs (tests/test_torch_sampled_report.py);
-    trade emission is emit_trade_lists', not a run_monte_carlo argument, as
-    in the JAX package; the plain strategy loop never stands in for kernel
-    K4 on the card."""
-    import types
-
-    from letf_tpu_torch.strategies.engine import run_strategies_batch
-
-    for kw, item in ((dict(tax_mode="exact_all"), "item 13"),
-                     (dict(tax_mode="none", engine_mode="parametric"),
-                      "item 11"),
-                     (dict(tax_mode="none", engine_mode="legacy_hybrid"),
-                      "item 15")):
-        with pytest.raises(NotImplementedError, match=f"ROADMAP.*{item}"):
-            mc_runner.monte_carlo_report(model, 1, num_simulations=8,
-                                         device="cpu", **kw)
+    """exact_all and legacy_hybrid with bootstrap pools raise naming their
+    ROADMAP items (the parametric modes run: tests/
+    test_torch_parametric_report.py; the sampled default:
+    tests/test_torch_sampled_report.py); trade emission is
+    emit_trade_lists', not a run_monte_carlo argument, as in the JAX
+    package; an unknown engine mode is a ValueError."""
+    with pytest.raises(NotImplementedError, match="ROADMAP.*item 13"):
+        mc_runner.monte_carlo_report(model, 1, num_simulations=8,
+                                     device="cpu", tax_mode="exact_all")
+    for fn in (mc_runner.run_monte_carlo, mc_runner.emit_trade_lists):
+        args = (model, 1, [0]) if fn is mc_runner.emit_trade_lists \
+            else (model, 1)
+        with pytest.raises(NotImplementedError, match="ROADMAP.*item 15"):
+            fn(*args, num_simulations=8, device="cpu",
+               engine_mode="legacy_hybrid", bootstrap_pools={"SPY": []})
     with pytest.raises(TypeError, match="emit_trades"):
         mc_runner.run_monte_carlo(model, 1, num_simulations=8,
                                   emit_trades=True, device="cpu")
-    on_card = types.SimpleNamespace(
-        etf_ret=types.SimpleNamespace(device=torch.device("cuda")))
-    with pytest.raises(NotImplementedError, match="ROADMAP.*2.4"):
-        run_strategies_batch(on_card, None, emit_trades=False)
+    with pytest.raises(ValueError, match="engine_mode"):
+        mc_runner.run_monte_carlo(model, 1, num_simulations=8,
+                                  engine_mode="bootstrap", device="cpu")
