@@ -17,11 +17,11 @@ Phases, each raising on failure:
    compose_strategies.check_parity's bounds, K5 (compose) within rtol 1e-5
    / atol 1e-6, K7 (bridge merge, merge and valley kinds, [2S, 600] and
    [2S, 2,048] with 0/2/4 payloads) and K8 (wash matching, [S, 650])
-   bitwise; K4 (strategies, channel and fused-signals modes) within
-   check_parity's bounds at 16,384 x 504 days, and its time at 16,384 x
-   7,560; K6 (buy-and-hold) within rtol 1e-5 at 1,048,576 x 30 years.
-   Each kernel's time beside the plain version's, its bound and, where one
-   PyTorch call computes the same function, that call's time.
+   bitwise; K6 (buy-and-hold) within rtol 1e-5 at 1,048,576 x 30 years
+   (K4 follows in phase 8, on the main path's channels; with --quick here,
+   at 16,384 x 252 days). Each kernel's time beside the plain version's,
+   its bound and, where one PyTorch call computes the same function, that
+   call's time.
 4. Reports through kernels vs plain versions on the card: 1,024 trials x
    0.5 year pre-tax, and the default sampled report at 1,024 x 1 year.
 5. The general path against the slab path (K1, K2, K3): with the emitting
@@ -35,10 +35,13 @@ Phases, each raising on failure:
    taxes and its sampled estimator's spread (phase_tax_reference).
 8. This slice's main path, monte_carlo_report(default_sim_model(), 30,
    65,536 trials, seed 2, engine_mode="parametric") with its default
-   sampled taxes, the seconds of each stage of one of its chunks, then the
-   parametric report through kernels and through plain versions (1,024 x
-   0.5 year), and the first 1,024 trials of the parametric run held to the
-   JAX package's (constants below).
+   sampled taxes, the seconds of each stage of one of its chunks, K4
+   (strategies) against its plain version on that chunk's channels within
+   check_parity's bounds (channel mode over 16,384 x 7,560 days,
+   fused-signals mode over its first 504), then the parametric report
+   through kernels and through plain versions (1,024 x 0.5 year), and the
+   first 1,024 trials of the parametric run held to the JAX package's
+   (constants below).
 9. The buy-and-hold headline: K6 against the port of the XLA twin by
    bench.py's distribution gate (262,144 x 10 years), then
    gbm_percentile_report(1, 1,048,576, 30) after a seed-0 warm-up.
@@ -114,6 +117,30 @@ def timed(fn, reps: int, warm: bool = True):
     return start.elapsed_time(end) / reps, out
 
 
+GENERAL_WINDOWS = 0     # window_offsets launches inside the general path
+
+
+def observe_general_windows():
+    """K2 (the slab chunk's window) and K2' (the general path's) are one
+    kernel behind one wrapper, ``window.window_offsets``, with one launch
+    counter. To report them apart, the general path's entry in mc_runner
+    is wrapped: the window launches made inside it go to GENERAL_WINDOWS
+    (K2'), and ``read`` gives K2 the rest."""
+    from letf_tpu_torch.ops import window
+    from letf_tpu_torch.parallel import mc_runner
+
+    inner = mc_runner.generate_paths_batched
+
+    def generate_paths_batched(*args, **kw):
+        global GENERAL_WINDOWS
+        before = window.LAUNCHES
+        out = inner(*args, **kw)
+        GENERAL_WINDOWS += window.LAUNCHES - before
+        return out
+
+    mc_runner.generate_paths_batched = generate_paths_batched
+
+
 def counters():
     """Each kernel's launch counter: name -> (module, attribute)."""
     from letf_tpu_torch.ops import compose, gbm, joint, sort_bridge
@@ -122,7 +149,7 @@ def counters():
     from letf_tpu_torch.ops import wash, window
 
     return {"joint": (joint, "LAUNCHES"), "window": (window, "LAUNCHES"),
-            "window_tiles": (window, "LAUNCHES_TILES"),
+            "window_tiles": (sys.modules[__name__], "GENERAL_WINDOWS"),
             "compose_strategies": (k3, "LAUNCHES"),
             "strategies": (k4, "LAUNCHES"), "compose": (compose, "LAUNCHES"),
             "gbm": (gbm, "LAUNCHES"), "sort_bridge": (sort_bridge, "LAUNCHES"),
@@ -135,7 +162,9 @@ def reset(ctrs):
 
 
 def read(ctrs):
-    return {k: getattr(mod, attr) for k, (mod, attr) in ctrs.items()}
+    out = {k: getattr(mod, attr) for k, (mod, attr) in ctrs.items()}
+    out["window"] -= out["window_tiles"]
+    return out
 
 
 def chain_inputs(model_t, B, sim, buf, seed=2):
@@ -254,10 +283,6 @@ def phase_kernels(model_t, quick: bool):
                                                      biases=bias), 3)
     for a, b in zip(wk, wp):
         assert torch.equal(a.view(torch.int32), b.view(torch.int32))
-    tiles_ms, wt = timed(lambda: window.window_tiles(xs, woffs, sim,
-                                                     biases=bias), 5)
-    for a, b in zip(wt, wp):
-        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
     # The one PyTorch call that computes the window: a gather over the six
     # channels side by side (the bias add left out).
     stacked = torch.cat(xs, dim=1)
@@ -265,18 +290,15 @@ def phase_kernels(model_t, quick: bool):
             + woffs.long()[None, :]).repeat(1, 6)
     lib_ms, _ = timed(lambda: torch.gather(stacked, 0, gidx), 5)
     del stacked, gidx
-    log(f"K2 window (and K2' window_tiles) vs plain at B={B_CHUNK} T={T} "
-        f"S={sim}, 6 channels: bitwise equal; kernel {ms:.3f} ms "
-        f"(window_tiles {tiles_ms:.3f} ms), plain {plain_ms:.3f} ms, "
+    log(f"K2/K2' window vs plain at B={B_CHUNK} T={T} S={sim}, 6 channels: "
+        f"bitwise equal; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
         f"torch.gather {lib_ms:.3f} ms")
-    wbytes = (2 * 6 * sim + 4) * B_CHUNK * 4
     rec["window"] = with_bound(dict(max_abs_err=0.0, ms=ms,
-                                    plain_ms=plain_ms), wbytes,
+                                    plain_ms=plain_ms),
+                               (2 * 6 * sim + 4) * B_CHUNK * 4,
                                3 * sim * B_CHUNK, lib_ms)
-    rec["window_tiles"] = with_bound(dict(max_abs_err=0.0, ms=tiles_ms,
-                                          plain_ms=plain_ms), wbytes,
-                                     3 * sim * B_CHUNK, lib_ms)
-    del xs, wk, wp, wt
+    rec["window_tiles"] = dict(rec["window"])     # the same kernel and call
+    del xs, wk, wp
     torch.cuda.empty_cache()
     rec["sort_bridge"] = phase_k7(sim)
     rec["wash"] = phase_k8(sim)
@@ -408,7 +430,6 @@ def plain_kernels():
 
     swaps = [(path_batched, "joint_generate", joint.joint_plain),
              (path_batched, "window_offsets", window.window_plain),
-             (path_batched, "window_tiles", window.window_plain),
              (strategies, "strategies_run", strategies.strategies_plain),
              (path_batched, "compose_generate", compose.compose_plain),
              (slab_chunk, "compose_strategies", k3.compose_strategies_plain),
@@ -479,9 +500,13 @@ def phase_small_report(model):
 # signals come from the signal pass's float32 cumsum-difference windows
 # (letf_tpu/ops/rolling.py's algorithm; the slab path sums its windows
 # exactly in the ring), which drift over 8,820 days and flip borderline
-# trades (5.1e-5, 0.159 and 0.488 measured on an H100, 700 W).
+# trades. The JAX package drifts as far between its own two signal
+# sources: tools/channel_signal_drift.py (30 years, on the CPU) reads
+# 2.5e-5, 0.108, 0.506, 0.022 at 1,024 trials (seed 11) and 2.4e-5, 0.105,
+# 0.510, 0.017 at 2,048 (seed 12); the port's channel mode on the card
+# read 5.1e-5, 0.159, 0.488, 0.011 at 16,384 (H100, 700 W).
 SLAB_BOUNDS = (1e-5, 0.01, 0.05, 5e-3)
-CHANNEL_BOUNDS = (2e-4, 0.3, 0.75, 2e-2)
+CHANNEL_BOUNDS = (1e-4, 0.2, 0.6, 2e-2)
 
 
 def general_vs_slab_stats(fw, nt, sm, bounds=SLAB_BOUNDS):
@@ -512,8 +537,7 @@ def phase_general_vs_slab(model_t):
       mode computes the signals as K3 does and is held to SLAB_BOUNDS; its
       channel mode, the main path's, reads the signal pass's windows and is
       held to CHANNEL_BOUNDS, to its plain version (phase_k4) and to the
-      JAX package (phase_jax_reference).
-    Returns K4's times in both modes at the full shape."""
+      JAX package (phase_jax_reference)."""
     from letf_tpu_torch.ops import rng
     from letf_tpu_torch.ops import strategies as k4
     from letf_tpu_torch.ops.path_batched import generate_paths_batched
@@ -523,7 +547,6 @@ def phase_general_vs_slab(model_t):
 
     rows = torch.arange(B_CHUNK, device="cuda")
     ids, anti, key = rows // 2, rows % 2 == 1, rng.key(11, "cuda")
-    out = {}
     for S, buf, emit in ((2 * 252, 504, True),
                          (FULL["sim"], FULL["buf"], False)):
         t0 = time.perf_counter()
@@ -537,13 +560,9 @@ def phase_general_vs_slab(model_t):
         else:
             chans = k4.channels_from(p, sig)
             del sig
-            out["ms"], (fw, nt, _) = timed(lambda: k4.strategies_run(chans),
-                                           2)
-            runs["K4 channel mode"] = (fw, nt)
-            fms, (fw, nt, _) = timed(lambda: k4.strategies_run(
-                chans[:k4.N_FUSED], fused_signals=True), 2)
-            runs["K4 fused-signals mode"] = (fw, nt)
-            out["fused_ms"] = fms
+            runs["K4 channel mode"] = k4.strategies_run(chans)[:2]
+            runs["K4 fused-signals mode"] = k4.strategies_run(
+                chans[:k4.N_FUSED], fused_signals=True)[:2]
             del chans
         torch.cuda.synchronize()
         t_gen = time.perf_counter() - t0
@@ -563,9 +582,6 @@ def phase_general_vs_slab(model_t):
                 f"{t_gen:.3f} s")
         del p, sm, runs
         torch.cuda.empty_cache()
-    log(f"K4 at B={B_CHUNK} S={FULL['sim']}: channel mode {out['ms']:.3f} "
-        f"ms, fused-signals mode {out['fused_ms']:.3f} ms")
-    return dict(out, days=FULL["sim"])
 
 
 def phase_pretax(model, counters):
@@ -776,15 +792,9 @@ def phase_tax_reference(model, rep, n=1_048_576, years=30, stride=128,
     assert not failed, failed
 
 
-def phase_k4(model_t, days: int):
-    """K4 against its plain version on the card in both modes at
-    B = 16,384 x ``days`` (504; 252 with --quick), on the channels of the
-    general path: channel mode and fused-signals mode within
-    compose_strategies.check_parity's bounds (the plain loop and the kernel
-    differ by float32 ulps of division and powf that flip borderline
-    trades). Returns the record of the kernels line (its ms replaced by
-    the full-shape time of phase_general_vs_slab)."""
-    from letf_tpu_torch.ops import compose_strategies as k3
+def general_channels(model_t, days: int):
+    """K4's 23 channels from the general path and its signals at
+    B = 16,384 x ``days`` (the short shape of --quick)."""
     from letf_tpu_torch.ops import rng
     from letf_tpu_torch.ops import strategies as k4
     from letf_tpu_torch.ops.path_batched import generate_paths_batched
@@ -794,13 +804,33 @@ def phase_k4(model_t, days: int):
     p = generate_paths_batched(model_t, rng.key(21, "cuda"), rows // 2,
                                rows % 2 == 1, sim_days=days,
                                buffer_days=days)
-    chans = k4.channels_from(p, compute_signals(p))
-    del p
+    return k4.channels_from(p, compute_signals(p))
+
+
+def phase_k4(chans, fused_plain_days=504):
+    """K4 against its plain version on the card on the 23 channels
+    ``chans`` [S, B] within compose_strategies.check_parity's bounds (the
+    plain loop and the kernel differ by float32 ulps of division and powf
+    that flip borderline trades). The full run gives it the main path's own
+    channels, one parametric chunk of 16,384 trials x 7,560 days, and
+    compares channel mode, the main path's, over all of them. Fused-signals
+    mode (the first 7 channels) runs on no main path and is held bitwise to
+    K3 at 7,560 days by phase_general_vs_slab; against its plain version it
+    is compared over the first ``fused_plain_days`` days, since the plain
+    loops are host-bound (~8-13 ms a day). Both modes are timed at the full
+    shape. Returns the record of the kernels line."""
+    from letf_tpu_torch.ops import compose_strategies as k3
+    from letf_tpu_torch.ops import strategies as k4
+
+    S, B = chans[0].shape
     rec = {}
     for fused in (False, True):
         cs = chans[:k4.N_FUSED] if fused else chans
         ms, got = timed(lambda: k4.strategies_run(cs, fused_signals=fused),
                         3)
+        if fused:
+            cs = [c[:fused_plain_days] for c in cs]
+            got = k4.strategies_run(cs, fused_signals=True)
         plain_ms, ref = timed(
             lambda: k4.strategies_plain(cs, fused_signals=fused), 1,
             warm=False)
@@ -809,13 +839,19 @@ def phase_k4(model_t, days: int):
                              exact=())
         mdd_err = float((got[2] - ref[2]).abs().max())
         mode = "fused-signals" if fused else "channel"
-        log(f"K4 strategies ({mode} mode) vs plain at B={B_CHUNK} "
-            f"S={days}: {st}, max drawdown max abs err {mdd_err:.3e}; "
-            f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
-        rec["strategies_fused" if fused else "strategies"] = dict(
-            max_abs_err=st["max_abs_err"], ms=ms, plain_ms=plain_ms,
-            plain_days=days)
-    return rec
+        log(f"K4 strategies ({mode} mode) vs plain at B={B} "
+            f"S={cs[0].shape[0]}: {st}, max drawdown max abs err "
+            f"{mdd_err:.3e}; kernel {ms:.3f} ms at S={S}, plain "
+            f"{plain_ms:.3f} ms at S={cs[0].shape[0]}")
+        rec[mode] = dict(max_abs_err=st["max_abs_err"], ms=ms,
+                         plain_ms=plain_ms, plain_days=cs[0].shape[0])
+        del got, ref
+    # Each channel read once, the 57 summaries written once.
+    fused = with_bound(rec["fused-signals"], (k4.N_FUSED * S + 57) * B * 4,
+                       OPS_PER_TRIAL_DAY["strategies_fused"] * S * B)
+    return with_bound(dict(rec["channel"], days=S, fused=fused),
+                      (len(chans) * S + 57) * B * 4,
+                      OPS_PER_TRIAL_DAY["strategies"] * S * B)
 
 
 def phase_k6(n=1_048_576, years=30, reps=3, gate=True):
@@ -906,7 +942,8 @@ def parametric_breakdown(model_t, B=B_CHUNK, years=30):
     """Seconds of each stage of one parametric chunk (B trials, synchronised
     between stages): the draws (draw_innovations), the mode's t returns,
     the day scans and composition of path_from_innovations, the signals,
-    K4."""
+    K4. Returns (the seconds, the chunk's 23 K4 channels): the main path's
+    first chunk, the same trials and seed."""
     from letf_tpu_torch.ops import path_engine as pe
     from letf_tpu_torch.ops import rng
     from letf_tpu_torch.ops import strategies as k4
@@ -934,9 +971,9 @@ def parametric_breakdown(model_t, B=B_CHUNK, years=30):
     del innov
     sig = stage("signals", lambda: compute_signals(path))
     chans = k4.channels_from(path, sig)
-    del sig
+    del sig, path
     stage("k4", lambda: k4.strategies_run(chans))
-    return out
+    return out, chans
 
 
 def phase_parametric(model, model_t, counters):
@@ -944,7 +981,8 @@ def phase_parametric(model, model_t, counters):
     num_simulations=65,536, seed=2, engine_mode="parametric") with its
     default sampled taxes and chunks of 16,384 (K4 at the production chunk
     shape), the counters set to 0 just before and read just after; then a
-    stage breakdown of one chunk."""
+    stage breakdown of one chunk, and K4 against its plain version on that
+    chunk's channels (phase_k4). Returns (the launches, K4's record)."""
     from letf_tpu_torch.parallel import mc_runner
 
     n, years = 65_536, 30
@@ -991,10 +1029,13 @@ def phase_parametric(model, model_t, counters):
               "compose", "gbm"):
         assert launches[k] == 0, launches
     assert launches["sort_bridge"] >= 1 and launches["wash"] >= 1, launches
-    br = parametric_breakdown(model_t)
+    br, chans = parametric_breakdown(model_t)
     log(f"parametric chunk ({B_CHUNK} x {years}y) stage seconds: "
         + json.dumps(br))
-    return launches
+    rec = phase_k4(chans)
+    del chans
+    torch.cuda.empty_cache()
+    return launches, rec
 
 
 def phase_parametric_small(model):
@@ -1031,245 +1072,125 @@ def phase_parametric_small(model):
 #   a = mc_runner.run_monte_carlo(default_sim_model(), 30,
 #   num_simulations=1024, seed=2, chunk_size=1024,
 #   engine_mode='parametric', progress=False)"
-# and summarised as: S1 (buy-and-hold TQQQ) final wealth per trial, the
-# trade counts summed over the trials per strategy, the median final
-# wealth per strategy, and integer sums of the start offsets, regime-1
-# days, jump days and valid flags.
+# and summarised as: S1 (buy-and-hold TQQQ) final wealth of the even
+# trials (the parametric mode draws no joint normals, so the two trials of
+# an antithetic pair are equal), the trade counts summed over the trials
+# per strategy, the median final wealth per strategy, and integer sums of
+# the start offsets, regime-1 days, jump days and valid flags.
 JAX_PARAM_S1_WEALTH = (
-    1.17809429e-06, 1.17809429e-06, 0.303354859, 0.303354859, 1.70489116e-07,
-    1.70489116e-07, 0.169302493, 0.169302493, 0.181942001, 0.181942001,
-    9.9937497e-06, 9.9937497e-06, 2.15045702e-07, 2.15045702e-07,
-    5.98441696e-12, 5.98441696e-12, 0.0169269629, 0.0169269629, 0.407225728,
-    0.407225728, 0.294270247, 0.294270247, 14.6481266, 14.6481266,
-    4.48084506e-07, 4.48084506e-07, 2.12537074, 2.12537074, 8.80949287e-08,
-    8.80949287e-08, 0.0565720163, 0.0565720163, 5.93935729e-05,
-    5.93935729e-05, 6.86477069e-05, 6.86477069e-05, 4.5986515e-05,
-    4.5986515e-05, 0.0389168747, 0.0389168747, 1.98423411e-08, 1.98423411e-08,
-    6.82920813e-08, 6.82920813e-08, 0.160017818, 0.160017818, 0.203568578,
-    0.203568578, 0.000581159489, 0.000581159489, 3.95184026e-15,
-    3.95184026e-15, 4.12109985e-05, 4.12109985e-05, 5.28945275e-05,
-    5.28945275e-05, 3.16048094e-08, 3.16048094e-08, 34.0409698, 34.0409698,
-    13.2002592, 13.2002592, 8.61156707e-07, 8.61156707e-07, 3.66081906e-07,
-    3.66081906e-07, 9.32292323e-07, 9.32292323e-07, 1300.78589, 1300.78589,
-    1.18133321e-05, 1.18133321e-05, 0.00164358539, 0.00164358539,
-    0.0342282169, 0.0342282169, 0.0366876498, 0.0366876498, 1.56310961e-07,
-    1.56310961e-07, 0.00251122098, 0.00251122098, 0.0059348275, 0.0059348275,
-    0.511605978, 0.511605978, 0.000797862536, 0.000797862536, 0.000815010397,
-    0.000815010397, 3.9648653e-06, 3.9648653e-06, 0.000272541627,
-    0.000272541627, 0.000380793615, 0.000380793615, 3.96455574, 3.96455574,
-    0.425015062, 0.425015062, 0.0144766746, 0.0144766746, 2.95780028e-05,
-    2.95780028e-05, 0.0404851176, 0.0404851176, 0.00217915722, 0.00217915722,
-    3.2096048e-11, 3.2096048e-11, 0.00850990787, 0.00850990787, 0.145245701,
-    0.145245701, 3.90701672e-11, 3.90701672e-11, 4.77539761e-05,
-    4.77539761e-05, 0.00734907994, 0.00734907994, 0.000270451914,
-    0.000270451914, 0.152058125, 0.152058125, 5.64851507e-06, 5.64851507e-06,
-    1.39746116e-05, 1.39746116e-05, 6.44871591e-07, 6.44871591e-07,
-    0.00159591448, 0.00159591448, 5.90230902e-12, 5.90230902e-12,
-    3.23058174e-07, 3.23058174e-07, 5.71987016e-07, 5.71987016e-07,
-    0.00415327819, 0.00415327819, 0.00428211456, 0.00428211456, 0.00417696778,
-    0.00417696778, 6.32150332e-08, 6.32150332e-08, 1.46081049e-06,
-    1.46081049e-06, 0.000483638432, 0.000483638432, 0.0227377247,
-    0.0227377247, 1.56818047e-07, 1.56818047e-07, 0.00178548717,
-    0.00178548717, 0.000383164064, 0.000383164064, 2.31206298, 2.31206298,
-    2.7651005e-08, 2.7651005e-08, 0.00872861035, 0.00872861035, 0.790225327,
-    0.790225327, 4.8848381, 4.8848381, 0.00304000755, 0.00304000755,
-    8.34018299e-10, 8.34018299e-10, 6.47652632e-05, 6.47652632e-05,
-    0.000401410827, 0.000401410827, 4.77249733e-11, 4.77249733e-11,
-    2.77910512e-08, 2.77910512e-08, 0.873548508, 0.873548508, 4.88418341,
-    4.88418341, 5.90040725e-11, 5.90040725e-11, 7.33013152e-08,
-    7.33013152e-08, 0.000248494587, 0.000248494587, 1.38721826e-10,
-    1.38721826e-10, 1.81629621e-05, 1.81629621e-05, 6.75795548e-07,
-    6.75795548e-07, 4.76422088e-07, 4.76422088e-07, 0.00977897644,
-    0.00977897644, 7.64295748e-07, 7.64295748e-07, 2.24212121e-10,
-    2.24212121e-10, 0.00056257454, 0.00056257454, 1.57045754e-09,
-    1.57045754e-09, 6759.48193, 6759.48193, 0.000455524481, 0.000455524481,
-    2.64116073, 2.64116073, 1.38663336e-06, 1.38663336e-06, 2.79148344e-06,
-    2.79148344e-06, 9.22621609e-07, 9.22621609e-07, 1.76048037e-10,
-    1.76048037e-10, 1.49400353e-06, 1.49400353e-06, 3.79632354e-07,
-    3.79632354e-07, 3.28887033e-08, 3.28887033e-08, 1.45082231e-05,
-    1.45082231e-05, 0.000185456462, 0.000185456462, 1.79410363e-05,
-    1.79410363e-05, 6.92852459e-12, 6.92852459e-12, 1.94170596e-10,
-    1.94170596e-10, 0.0251252726, 0.0251252726, 1.7550039e-05, 1.7550039e-05,
-    0.000934172189, 0.000934172189, 0.0181493014, 0.0181493014,
-    3.49307857e-06, 3.49307857e-06, 0.00849923119, 0.00849923119,
-    3.9174215e-09, 3.9174215e-09, 0.000159885385, 0.000159885385,
-    5.08330668e-05, 5.08330668e-05, 8.92413807, 8.92413807, 3.97593292e-09,
-    3.97593292e-09, 0.00161744701, 0.00161744701, 0.0240423474, 0.0240423474,
-    1.87324947e-11, 1.87324947e-11, 0.0649224296, 0.0649224296, 2.1832393e-05,
-    2.1832393e-05, 0.00336316647, 0.00336316647, 7.57081651e-08,
-    7.57081651e-08, 4.12077572e-09, 4.12077572e-09, 6.49651702e-05,
-    6.49651702e-05, 0.160293326, 0.160293326, 0.000184038101, 0.000184038101,
-    0.208313823, 0.208313823, 6184.75781, 6184.75781, 0.00326973759,
-    0.00326973759, 0.00419153925, 0.00419153925, 3.05318531e-06,
-    3.05318531e-06, 0.000151846398, 0.000151846398, 1.46050445e-06,
-    1.46050445e-06, 0.107145041, 0.107145041, 0.000362606632, 0.000362606632,
-    4.1216211e-10, 4.1216211e-10, 2.92260884e-05, 2.92260884e-05,
-    0.0318562835, 0.0318562835, 0.00163367752, 0.00163367752, 0.920823276,
-    0.920823276, 1.78229718e-12, 1.78229718e-12, 0.00175620604, 0.00175620604,
-    0.000178064583, 0.000178064583, 0.00129481358, 0.00129481358,
-    0.00637641922, 0.00637641922, 3.37089758e-13, 3.37089758e-13,
-    1.94530561e-08, 1.94530561e-08, 1.30055378e-06, 1.30055378e-06,
-    0.103695035, 0.103695035, 0.00381559739, 0.00381559739, 0.000816409069,
-    0.000816409069, 0.00029287074, 0.00029287074, 5.62833424e-09,
-    5.62833424e-09, 2.99723365e-06, 2.99723365e-06, 2.68031604e-12,
-    2.68031604e-12, 1.71867356e-08, 1.71867356e-08, 0.000183130163,
-    0.000183130163, 4.67943628e-10, 4.67943628e-10, 1.05035891e-08,
-    1.05035891e-08, 0.00933025125, 0.00933025125, 2.74844879e-05,
-    2.74844879e-05, 7.57475007e-08, 7.57475007e-08, 6.48934328e-09,
-    6.48934328e-09, 5.6516633, 5.6516633, 5.00056245e-08, 5.00056245e-08,
-    1.22904758e-05, 1.22904758e-05, 0.00248012249, 0.00248012249,
-    2.16173157e-05, 2.16173157e-05, 5.56419945e-06, 5.56419945e-06,
-    0.000464515266, 0.000464515266, 0.00318255811, 0.00318255811,
-    0.000614930468, 0.000614930468, 2.17071683e-05, 2.17071683e-05,
-    0.000126030121, 0.000126030121, 0.762881279, 0.762881279, 20.6935234,
-    20.6935234, 4.89003449e-10, 4.89003449e-10, 1.4839469e-07, 1.4839469e-07,
-    3.01773671e-05, 3.01773671e-05, 10310.6348, 10310.6348, 0.00155163114,
-    0.00155163114, 0.0006175983, 0.0006175983, 1.5083015, 1.5083015,
-    4.69659017e-16, 4.69659017e-16, 9.2837281e-06, 9.2837281e-06,
-    5.0906241e-08, 5.0906241e-08, 4.32301204e-06, 4.32301204e-06,
-    0.000845273782, 0.000845273782, 4.16551702e-05, 4.16551702e-05,
-    4.11373003e-06, 4.11373003e-06, 1.77900529e-05, 1.77900529e-05,
-    0.00891209766, 0.00891209766, 9.41971414e-12, 9.41971414e-12,
-    0.000273307669, 0.000273307669, 3.03433421e-06, 3.03433421e-06,
-    0.00964473747, 0.00964473747, 2.79311996e-09, 2.79311996e-09,
-    6.83072903e-06, 6.83072903e-06, 3.97119665, 3.97119665, 0.00034677409,
-    0.00034677409, 7.46802442e-08, 7.46802442e-08, 3.84313587e-14,
-    3.84313587e-14, 2.57449784e-07, 2.57449784e-07, 3.95146089e-05,
-    3.95146089e-05, 0.195693165, 0.195693165, 4.52777203e-05, 4.52777203e-05,
-    5.20120484e-05, 5.20120484e-05, 7.24737816e-08, 7.24737816e-08,
-    1.47400581e-08, 1.47400581e-08, 0.0802942067, 0.0802942067, 1.3283473e-05,
-    1.3283473e-05, 7.03220806e-08, 7.03220806e-08, 0.365393192, 0.365393192,
-    0.552434862, 0.552434862, 9.85526327e-09, 9.85526327e-09, 1.80861404e-09,
-    1.80861404e-09, 0.622277498, 0.622277498, 3.61695491e-08, 3.61695491e-08,
-    0.000464509998, 0.000464509998, 0.176714003, 0.176714003, 37.0831566,
-    37.0831566, 1.01770002e-10, 1.01770002e-10, 0.000210933489,
-    0.000210933489, 7.17883495e-08, 7.17883495e-08, 3.83215166e-08,
-    3.83215166e-08, 0.210293561, 0.210293561, 5.29925899e-07, 5.29925899e-07,
-    0.846123099, 0.846123099, 2.7044772e-10, 2.7044772e-10, 8.92540338e-05,
-    8.92540338e-05, 2.26772227e-06, 2.26772227e-06, 1.98636418e-09,
-    1.98636418e-09, 3.39602252e-07, 3.39602252e-07, 3.90590671e-09,
-    3.90590671e-09, 6.24602981e-05, 6.24602981e-05, 5.89418705e-13,
-    5.89418705e-13, 0.000175619774, 0.000175619774, 7.65005898e-05,
-    7.65005898e-05, 0.200449198, 0.200449198, 3.39444705e-05, 3.39444705e-05,
-    3.53695686e-05, 3.53695686e-05, 0.00409096899, 0.00409096899,
-    0.000175466324, 0.000175466324, 4.72412694e-06, 4.72412694e-06,
-    5.01191211e-13, 5.01191211e-13, 0.00107861124, 0.00107861124,
-    0.00958192814, 0.00958192814, 0.00397872133, 0.00397872133,
-    0.000273483718, 0.000273483718, 0.000856761646, 0.000856761646,
-    0.000346788234, 0.000346788234, 5.85520876e-09, 5.85520876e-09,
-    2.38489093e-07, 2.38489093e-07, 1.2387857e-08, 1.2387857e-08,
-    0.00200181338, 0.00200181338, 7.57940552e-06, 7.57940552e-06,
-    0.00203671074, 0.00203671074, 4.88242113e-09, 4.88242113e-09,
-    1.00307558e-08, 1.00307558e-08, 1.40421366e-06, 1.40421366e-06,
-    1.02873288e-09, 1.02873288e-09, 6.61511887e-11, 6.61511887e-11,
-    9.93297111e-10, 9.93297111e-10, 0.142184898, 0.142184898, 9.75830062e-07,
-    9.75830062e-07, 2.51736583e-05, 2.51736583e-05, 1.43929437e-08,
-    1.43929437e-08, 56.4020462, 56.4020462, 6.23566157e-05, 6.23566157e-05,
-    4.97474957e-06, 4.97474957e-06, 5.35306313e-11, 5.35306313e-11,
-    0.00017210262, 0.00017210262, 3.13989858e-06, 3.13989858e-06,
-    2.04893702e-09, 2.04893702e-09, 1.97269955e-07, 1.97269955e-07,
-    0.00109196338, 0.00109196338, 2.32794872e-09, 2.32794872e-09,
-    6.35207334e-06, 6.35207334e-06, 1.4713376e-05, 1.4713376e-05,
-    1.11899442e-06, 1.11899442e-06, 1.54934187e-05, 1.54934187e-05,
-    5.21248928e-08, 5.21248928e-08, 4.34069443e-05, 4.34069443e-05,
-    0.490133405, 0.490133405, 1.05792305e-05, 1.05792305e-05, 2.38395135e-08,
-    2.38395135e-08, 4.67096555e-07, 4.67096555e-07, 0.452511013, 0.452511013,
-    1.49092938e-09, 1.49092938e-09, 1.20787408e-11, 1.20787408e-11,
-    4.02344546e-15, 4.02344546e-15, 0.00273601152, 0.00273601152,
-    9.43235356e-09, 9.43235356e-09, 2.61982175e-14, 2.61982175e-14,
-    0.000469961844, 0.000469961844, 0.000145350452, 0.000145350452,
-    48.7987518, 48.7987518, 2.15942153e-09, 2.15942153e-09, 0.224049062,
-    0.224049062, 0.0136808613, 0.0136808613, 1.18205878e-09, 1.18205878e-09,
-    2.86838531e-09, 2.86838531e-09, 6.58255539e-09, 6.58255539e-09,
-    0.000245591684, 0.000245591684, 0.000273015321, 0.000273015321,
-    4.05041959e-07, 4.05041959e-07, 7.98072719e-09, 7.98072719e-09, 30713.043,
-    30713.043, 1.68136182e-07, 1.68136182e-07, 5.28042904e-07, 5.28042904e-07,
-    3.04860328e-06, 3.04860328e-06, 5.39001732e-10, 5.39001732e-10,
-    0.0685225725, 0.0685225725, 2.17075026e-07, 2.17075026e-07,
-    3.73909984e-06, 3.73909984e-06, 44.3340874, 44.3340874, 1.79998502e-10,
-    1.79998502e-10, 0.000576331397, 0.000576331397, 0.0112674264,
-    0.0112674264, 0.000161360585, 0.000161360585, 6.80243275e-08,
-    6.80243275e-08, 251.74585, 251.74585, 9.42753715e-08, 9.42753715e-08,
-    3.51115981e-09, 3.51115981e-09, 9.41236576e-05, 9.41236576e-05,
-    0.00012086772, 0.00012086772, 9.91915567e-06, 9.91915567e-06,
-    6.07951479e-05, 6.07951479e-05, 0.0502046868, 0.0502046868,
-    0.000101442136, 0.000101442136, 1.05005569e-07, 1.05005569e-07,
-    0.005470125, 0.005470125, 0.000255784107, 0.000255784107, 2.03984041e-06,
-    2.03984041e-06, 1.69709301e-06, 1.69709301e-06, 0.00027781722,
-    0.00027781722, 1.15542991e-06, 1.15542991e-06, 8.90453375e-05,
-    8.90453375e-05, 1.45333473e-07, 1.45333473e-07, 1.28244901e-05,
-    1.28244901e-05, 0.0300545599, 0.0300545599, 3.58174452e-06,
-    3.58174452e-06, 9.70868719e-10, 9.70868719e-10, 21.3787727, 21.3787727,
-    31.3335609, 31.3335609, 0.00597738754, 0.00597738754, 0.237730324,
-    0.237730324, 0.000137810493, 0.000137810493, 9.75241554e-11,
-    9.75241554e-11, 1.34547954e-05, 1.34547954e-05, 0.000891606498,
-    0.000891606498, 6.99037337e-05, 6.99037337e-05, 5.44433369e-08,
-    5.44433369e-08, 4.21314805e-09, 4.21314805e-09, 5.48111359e-07,
-    5.48111359e-07, 1.35799655e-05, 1.35799655e-05, 0.00160416029,
-    0.00160416029, 0.0269072782, 0.0269072782, 6.3968313e-05, 6.3968313e-05,
-    0.00154944451, 0.00154944451, 1.21575304e-05, 1.21575304e-05,
-    0.00548206875, 0.00548206875, 3.25889869e-06, 3.25889869e-06,
-    0.0779428035, 0.0779428035, 8.32619699e-14, 8.32619699e-14,
-    8.13466482e-13, 8.13466482e-13, 7.76964049e-10, 7.76964049e-10,
-    6.61613228e-07, 6.61613228e-07, 3.14399548e-12, 3.14399548e-12,
-    0.000296593207, 0.000296593207, 0.00968884304, 0.00968884304,
-    1.15138491e-05, 1.15138491e-05, 8.36583422e-06, 8.36583422e-06,
-    4.13862745e-06, 4.13862745e-06, 0.957248926, 0.957248926, 0.00453393534,
-    0.00453393534, 7.46108416e-13, 7.46108416e-13, 0.00511990208,
-    0.00511990208, 8.82166059e-05, 8.82166059e-05, 7.7886364e-11,
-    7.7886364e-11, 0.0830258578, 0.0830258578, 2.0385728e-06, 2.0385728e-06,
-    8.45018405e-07, 8.45018405e-07, 0.0525601991, 0.0525601991, 0.00321619934,
-    0.00321619934, 6.21366638e-08, 6.21366638e-08, 5.20234266e-07,
-    5.20234266e-07, 1.14093872e-07, 1.14093872e-07, 1.12362238e-06,
-    1.12362238e-06, 6.56027533e-13, 6.56027533e-13, 4.20928119e-11,
-    4.20928119e-11, 4.66797519e-06, 4.66797519e-06, 2.46019793, 2.46019793,
-    0.00269208592, 0.00269208592, 4.3681105e-08, 4.3681105e-08,
-    0.000120454431, 0.000120454431, 8.18955414e-06, 8.18955414e-06,
-    0.00174142874, 0.00174142874, 0.0110476045, 0.0110476045, 0.000571155746,
-    0.000571155746, 8.5051289e-07, 8.5051289e-07, 7.58302379e-11,
-    7.58302379e-11, 1.09854118e-05, 1.09854118e-05, 28.3367672, 28.3367672,
-    9.49981484e-07, 9.49981484e-07, 7.54061917e-12, 7.54061917e-12,
-    0.00286900112, 0.00286900112, 7.0442884e-06, 7.0442884e-06,
-    3.70760134e-08, 3.70760134e-08, 2.09885734e-10, 2.09885734e-10,
-    4.95447461e-10, 4.95447461e-10, 3.17007041, 3.17007041, 2.74115473e-06,
-    2.74115473e-06, 0.36948669, 0.36948669, 13.5379124, 13.5379124,
-    3.9780366e-06, 3.9780366e-06, 5.95445382e-09, 5.95445382e-09, 0.338074952,
-    0.338074952, 2.5073993e-07, 2.5073993e-07, 2.42265332e-06, 2.42265332e-06,
-    5.96776744e-08, 5.96776744e-08, 2.39660608e-07, 2.39660608e-07,
-    6.8446725e-06, 6.8446725e-06, 1.03188352e-11, 1.03188352e-11,
-    0.0211892333, 0.0211892333, 9.58896362e-06, 9.58896362e-06,
-    0.000159139323, 0.000159139323, 8.3423214, 8.3423214, 26.5289383,
-    26.5289383, 6.96234892e-08, 6.96234892e-08, 1.17009386e-05,
-    1.17009386e-05, 0.000198462658, 0.000198462658, 9.09473243e-08,
-    9.09473243e-08, 3.83155857e-05, 3.83155857e-05, 1.97682967e-10,
-    1.97682967e-10, 0.00220527337, 0.00220527337, 0.0121139949, 0.0121139949,
-    9.81628327e-05, 9.81628327e-05, 2.64552042e-08, 2.64552042e-08, 36.762619,
-    36.762619, 0.0498209931, 0.0498209931, 1.38471616e-08, 1.38471616e-08,
-    1.06381314e-07, 1.06381314e-07, 8.25654567e-09, 8.25654567e-09,
-    1.58324804e-06, 1.58324804e-06, 0.000734812231, 0.000734812231,
-    0.0350078866, 0.0350078866, 0.000848727184, 0.000848727184, 21.0741081,
-    21.0741081, 1.6547036e-10, 1.6547036e-10, 0.222947061, 0.222947061,
-    0.169178784, 0.169178784, 0.0603309162, 0.0603309162, 0.0200772919,
-    0.0200772919, 3.93648079e-05, 3.93648079e-05, 0.0103356512, 0.0103356512,
-    0.0205549374, 0.0205549374, 0.504310429, 0.504310429, 1.32514169e-05,
-    1.32514169e-05, 0.000150197156, 0.000150197156, 1.45425743e-08,
-    1.45425743e-08, 1.18353569e-06, 1.18353569e-06, 0.0101239588,
-    0.0101239588, 4.42026554e-11, 4.42026554e-11, 1.14479867e-07,
-    1.14479867e-07, 1.92795833e-05, 1.92795833e-05, 2.81876318e-08,
-    2.81876318e-08, 0.00104243646, 0.00104243646, 0.00188255403,
-    0.00188255403, 0.158121273, 0.158121273, 3.60791719e-13, 3.60791719e-13,
-    8.38441636e-08, 8.38441636e-08, 0.0861226097, 0.0861226097, 0.398215175,
-    0.398215175, 0.0298467632, 0.0298467632, 4.65811945e-06, 4.65811945e-06,
-    0.460993826, 0.460993826, 3.3550196e-10, 3.3550196e-10, 0.000288519572,
-    0.000288519572, 2.37338609e-05, 2.37338609e-05, 0.000323758723,
-    0.000323758723, 1.2809602, 1.2809602, 0.00186739594, 0.00186739594,
-    0.327151597, 0.327151597, 0.040911518, 0.040911518, 1.36281506e-06,
-    1.36281506e-06, 2.34313156e-05, 2.34313156e-05, 1.37712419e-07,
-    1.37712419e-07, 5.83031445e-09, 5.83031445e-09, 0.0879072919,
-    0.0879072919, 0.0829968527, 0.0829968527, 2.96548275e-09, 2.96548275e-09,
-    2.84381741e-07, 2.84381741e-07, 7.48855114, 7.48855114, 0.00410058955,
-    0.00410058955, 5.81267996e-05, 5.81267996e-05, 1.3073703e-08,
-    1.3073703e-08,)
+    1.17809429e-06, 0.303354859, 1.70489116e-07, 0.169302493, 0.181942001,
+    9.9937497e-06, 2.15045702e-07, 5.98441696e-12, 0.0169269629, 0.407225728,
+    0.294270247, 14.6481266, 4.48084506e-07, 2.12537074, 8.80949287e-08,
+    0.0565720163, 5.93935729e-05, 6.86477069e-05, 4.5986515e-05, 0.0389168747,
+    1.98423411e-08, 6.82920813e-08, 0.160017818, 0.203568578, 0.000581159489,
+    3.95184026e-15, 4.12109985e-05, 5.28945275e-05, 3.16048094e-08, 34.0409698,
+    13.2002592, 8.61156707e-07, 3.66081906e-07, 9.32292323e-07, 1300.78589,
+    1.18133321e-05, 0.00164358539, 0.0342282169, 0.0366876498, 1.56310961e-07,
+    0.00251122098, 0.0059348275, 0.511605978, 0.000797862536, 0.000815010397,
+    3.9648653e-06, 0.000272541627, 0.000380793615, 3.96455574, 0.425015062,
+    0.0144766746, 2.95780028e-05, 0.0404851176, 0.00217915722, 3.2096048e-11,
+    0.00850990787, 0.145245701, 3.90701672e-11, 4.77539761e-05, 0.00734907994,
+    0.000270451914, 0.152058125, 5.64851507e-06, 1.39746116e-05,
+    6.44871591e-07, 0.00159591448, 5.90230902e-12, 3.23058174e-07,
+    5.71987016e-07, 0.00415327819, 0.00428211456, 0.00417696778,
+    6.32150332e-08, 1.46081049e-06, 0.000483638432, 0.0227377247,
+    1.56818047e-07, 0.00178548717, 0.000383164064, 2.31206298, 2.7651005e-08,
+    0.00872861035, 0.790225327, 4.8848381, 0.00304000755, 8.34018299e-10,
+    6.47652632e-05, 0.000401410827, 4.77249733e-11, 2.77910512e-08,
+    0.873548508, 4.88418341, 5.90040725e-11, 7.33013152e-08, 0.000248494587,
+    1.38721826e-10, 1.81629621e-05, 6.75795548e-07, 4.76422088e-07,
+    0.00977897644, 7.64295748e-07, 2.24212121e-10, 0.00056257454,
+    1.57045754e-09, 6759.48193, 0.000455524481, 2.64116073, 1.38663336e-06,
+    2.79148344e-06, 9.22621609e-07, 1.76048037e-10, 1.49400353e-06,
+    3.79632354e-07, 3.28887033e-08, 1.45082231e-05, 0.000185456462,
+    1.79410363e-05, 6.92852459e-12, 1.94170596e-10, 0.0251252726,
+    1.7550039e-05, 0.000934172189, 0.0181493014, 3.49307857e-06, 0.00849923119,
+    3.9174215e-09, 0.000159885385, 5.08330668e-05, 8.92413807, 3.97593292e-09,
+    0.00161744701, 0.0240423474, 1.87324947e-11, 0.0649224296, 2.1832393e-05,
+    0.00336316647, 7.57081651e-08, 4.12077572e-09, 6.49651702e-05, 0.160293326,
+    0.000184038101, 0.208313823, 6184.75781, 0.00326973759, 0.00419153925,
+    3.05318531e-06, 0.000151846398, 1.46050445e-06, 0.107145041,
+    0.000362606632, 4.1216211e-10, 2.92260884e-05, 0.0318562835, 0.00163367752,
+    0.920823276, 1.78229718e-12, 0.00175620604, 0.000178064583, 0.00129481358,
+    0.00637641922, 3.37089758e-13, 1.94530561e-08, 1.30055378e-06, 0.103695035,
+    0.00381559739, 0.000816409069, 0.00029287074, 5.62833424e-09,
+    2.99723365e-06, 2.68031604e-12, 1.71867356e-08, 0.000183130163,
+    4.67943628e-10, 1.05035891e-08, 0.00933025125, 2.74844879e-05,
+    7.57475007e-08, 6.48934328e-09, 5.6516633, 5.00056245e-08, 1.22904758e-05,
+    0.00248012249, 2.16173157e-05, 5.56419945e-06, 0.000464515266,
+    0.00318255811, 0.000614930468, 2.17071683e-05, 0.000126030121, 0.762881279,
+    20.6935234, 4.89003449e-10, 1.4839469e-07, 3.01773671e-05, 10310.6348,
+    0.00155163114, 0.0006175983, 1.5083015, 4.69659017e-16, 9.2837281e-06,
+    5.0906241e-08, 4.32301204e-06, 0.000845273782, 4.16551702e-05,
+    4.11373003e-06, 1.77900529e-05, 0.00891209766, 9.41971414e-12,
+    0.000273307669, 3.03433421e-06, 0.00964473747, 2.79311996e-09,
+    6.83072903e-06, 3.97119665, 0.00034677409, 7.46802442e-08, 3.84313587e-14,
+    2.57449784e-07, 3.95146089e-05, 0.195693165, 4.52777203e-05,
+    5.20120484e-05, 7.24737816e-08, 1.47400581e-08, 0.0802942067,
+    1.3283473e-05, 7.03220806e-08, 0.365393192, 0.552434862, 9.85526327e-09,
+    1.80861404e-09, 0.622277498, 3.61695491e-08, 0.000464509998, 0.176714003,
+    37.0831566, 1.01770002e-10, 0.000210933489, 7.17883495e-08, 3.83215166e-08,
+    0.210293561, 5.29925899e-07, 0.846123099, 2.7044772e-10, 8.92540338e-05,
+    2.26772227e-06, 1.98636418e-09, 3.39602252e-07, 3.90590671e-09,
+    6.24602981e-05, 5.89418705e-13, 0.000175619774, 7.65005898e-05,
+    0.200449198, 3.39444705e-05, 3.53695686e-05, 0.00409096899, 0.000175466324,
+    4.72412694e-06, 5.01191211e-13, 0.00107861124, 0.00958192814,
+    0.00397872133, 0.000273483718, 0.000856761646, 0.000346788234,
+    5.85520876e-09, 2.38489093e-07, 1.2387857e-08, 0.00200181338,
+    7.57940552e-06, 0.00203671074, 4.88242113e-09, 1.00307558e-08,
+    1.40421366e-06, 1.02873288e-09, 6.61511887e-11, 9.93297111e-10,
+    0.142184898, 9.75830062e-07, 2.51736583e-05, 1.43929437e-08, 56.4020462,
+    6.23566157e-05, 4.97474957e-06, 5.35306313e-11, 0.00017210262,
+    3.13989858e-06, 2.04893702e-09, 1.97269955e-07, 0.00109196338,
+    2.32794872e-09, 6.35207334e-06, 1.4713376e-05, 1.11899442e-06,
+    1.54934187e-05, 5.21248928e-08, 4.34069443e-05, 0.490133405,
+    1.05792305e-05, 2.38395135e-08, 4.67096555e-07, 0.452511013,
+    1.49092938e-09, 1.20787408e-11, 4.02344546e-15, 0.00273601152,
+    9.43235356e-09, 2.61982175e-14, 0.000469961844, 0.000145350452, 48.7987518,
+    2.15942153e-09, 0.224049062, 0.0136808613, 1.18205878e-09, 2.86838531e-09,
+    6.58255539e-09, 0.000245591684, 0.000273015321, 4.05041959e-07,
+    7.98072719e-09, 30713.043, 1.68136182e-07, 5.28042904e-07, 3.04860328e-06,
+    5.39001732e-10, 0.0685225725, 2.17075026e-07, 3.73909984e-06, 44.3340874,
+    1.79998502e-10, 0.000576331397, 0.0112674264, 0.000161360585,
+    6.80243275e-08, 251.74585, 9.42753715e-08, 3.51115981e-09, 9.41236576e-05,
+    0.00012086772, 9.91915567e-06, 6.07951479e-05, 0.0502046868,
+    0.000101442136, 1.05005569e-07, 0.005470125, 0.000255784107,
+    2.03984041e-06, 1.69709301e-06, 0.00027781722, 1.15542991e-06,
+    8.90453375e-05, 1.45333473e-07, 1.28244901e-05, 0.0300545599,
+    3.58174452e-06, 9.70868719e-10, 21.3787727, 31.3335609, 0.00597738754,
+    0.237730324, 0.000137810493, 9.75241554e-11, 1.34547954e-05,
+    0.000891606498, 6.99037337e-05, 5.44433369e-08, 4.21314805e-09,
+    5.48111359e-07, 1.35799655e-05, 0.00160416029, 0.0269072782, 6.3968313e-05,
+    0.00154944451, 1.21575304e-05, 0.00548206875, 3.25889869e-06, 0.0779428035,
+    8.32619699e-14, 8.13466482e-13, 7.76964049e-10, 6.61613228e-07,
+    3.14399548e-12, 0.000296593207, 0.00968884304, 1.15138491e-05,
+    8.36583422e-06, 4.13862745e-06, 0.957248926, 0.00453393534, 7.46108416e-13,
+    0.00511990208, 8.82166059e-05, 7.7886364e-11, 0.0830258578, 2.0385728e-06,
+    8.45018405e-07, 0.0525601991, 0.00321619934, 6.21366638e-08,
+    5.20234266e-07, 1.14093872e-07, 1.12362238e-06, 6.56027533e-13,
+    4.20928119e-11, 4.66797519e-06, 2.46019793, 0.00269208592, 4.3681105e-08,
+    0.000120454431, 8.18955414e-06, 0.00174142874, 0.0110476045,
+    0.000571155746, 8.5051289e-07, 7.58302379e-11, 1.09854118e-05, 28.3367672,
+    9.49981484e-07, 7.54061917e-12, 0.00286900112, 7.0442884e-06,
+    3.70760134e-08, 2.09885734e-10, 4.95447461e-10, 3.17007041, 2.74115473e-06,
+    0.36948669, 13.5379124, 3.9780366e-06, 5.95445382e-09, 0.338074952,
+    2.5073993e-07, 2.42265332e-06, 5.96776744e-08, 2.39660608e-07,
+    6.8446725e-06, 1.03188352e-11, 0.0211892333, 9.58896362e-06,
+    0.000159139323, 8.3423214, 26.5289383, 6.96234892e-08, 1.17009386e-05,
+    0.000198462658, 9.09473243e-08, 3.83155857e-05, 1.97682967e-10,
+    0.00220527337, 0.0121139949, 9.81628327e-05, 2.64552042e-08, 36.762619,
+    0.0498209931, 1.38471616e-08, 1.06381314e-07, 8.25654567e-09,
+    1.58324804e-06, 0.000734812231, 0.0350078866, 0.000848727184, 21.0741081,
+    1.6547036e-10, 0.222947061, 0.169178784, 0.0603309162, 0.0200772919,
+    3.93648079e-05, 0.0103356512, 0.0205549374, 0.504310429, 1.32514169e-05,
+    0.000150197156, 1.45425743e-08, 1.18353569e-06, 0.0101239588,
+    4.42026554e-11, 1.14479867e-07, 1.92795833e-05, 2.81876318e-08,
+    0.00104243646, 0.00188255403, 0.158121273, 3.60791719e-13, 8.38441636e-08,
+    0.0861226097, 0.398215175, 0.0298467632, 4.65811945e-06, 0.460993826,
+    3.3550196e-10, 0.000288519572, 2.37338609e-05, 0.000323758723, 1.2809602,
+    0.00186739594, 0.327151597, 0.040911518, 1.36281506e-06, 2.34313156e-05,
+    1.37712419e-07, 5.83031445e-09, 0.0879072919, 0.0829968527, 2.96548275e-09,
+    2.84381741e-07, 7.48855114, 0.00410058955, 5.81267996e-05, 1.3073703e-08,)
 JAX_PARAM_TRADE_SUMS = (0, 0, 0, 259854, 244042, 735232, 4149714, 1141028, 7152368, 5574496, 7400038, 7484428, 7441386, 7333118, 5658782, 7596764, 6355624, 7297408, 2635558)
 JAX_PARAM_WEALTH_P50 = (3.943971e-05, 23846.01, 1653.457, 0.5234566, 0.1812698, 42.40187, 12548.94, 3236.632, 13084.02, 12005.22, 19766.68, 20066.78, 17746.56, 18773.1, 2756.774, 1097476.0, 8316.772, 10107.15, 187.1099)
 JAX_PARAM_INT_SUMS = {'start_offset': 663260, 'regime_high_days': 1937774, 'jump_days': 14676, 'valid': 922}
@@ -1278,19 +1199,22 @@ JAX_PARAM_INT_SUMS = {'start_offset': 663260, 'regime_high_days': 1937774, 'jump
 def phase_jax_reference(model):
     """The first 1,024 trials of the parametric run on the card against the
     JAX package's (constants above). The start offsets and regime paths
-    are exact; S1 takes no decisions, so its wealth agrees trial by trial
-    to the float32 ulps of the two libm's compounded over 7,560 days
-    (median relative error < 1e-5, every trial within rtol 1e-3); the
-    other strategies' trades flip where a signal sits within ulps of a
-    threshold (the two packages compute the rolling signals differently in
-    float32): each strategy's summed trade count within 0.5% of the JAX
-    package's, its median wealth within 2%."""
+    are exact; the two trials of each antithetic pair are equal; S1 takes
+    no decisions, so its wealth agrees trial by trial to the float32 ulps
+    of the two libm's compounded over 7,560 days (median relative error
+    < 1e-5, every trial within rtol 1e-3); the other strategies' trades
+    flip where a signal sits within ulps of a threshold (the two packages
+    compute the rolling signals differently in float32): each strategy's
+    summed trade count within 0.5% of the JAX package's, its median wealth
+    within 2%."""
     from letf_tpu_torch.parallel import mc_runner
 
     a = mc_runner.run_monte_carlo(model, 30, num_simulations=1024, seed=2,
                                   chunk_size=1024, engine_mode="parametric",
                                   device="cuda")
     s1 = a.final_wealth[:, 0].astype(np.float64)
+    assert np.array_equal(s1[0::2], s1[1::2]), "antithetic pairs differ"
+    s1 = s1[0::2]
     ref = np.asarray(JAX_PARAM_S1_WEALTH)
     rel = np.abs(s1 - ref) / np.maximum(np.abs(ref), 1e-30)
     sums = a.num_trades.sum(0)
@@ -1438,32 +1362,24 @@ def main():
     model = default_sim_model()
     model_t = from_numpy(model, "cuda", torch.float32)
     rec = phase_kernels(model_t, args.quick)
-    rec.update(phase_k4(model_t, QUICK["sim"] if args.quick else 504))
     if args.quick:
+        rec["strategies"] = phase_k4(general_channels(model_t, QUICK["sim"]))
         rec["gbm"] = phase_k6(n=65_536, years=1, reps=2, gate=False)
         log(json.dumps(rec))
         print(smi)
         return
     rec["gbm"] = phase_k6()
     phase_small_report(model)
-    k4_full = phase_general_vs_slab(model_t)
-    S = FULL["sim"]
-    fused = rec.pop("strategies_fused")
-    rec["strategies"] = with_bound(
-        dict(rec["strategies"], ms=k4_full["ms"], days=S,
-             ms_at_plain_days=rec["strategies"]["ms"],
-             fused=dict(ms=k4_full["fused_ms"], plain_ms=fused["plain_ms"],
-                        ms_at_plain_days=fused["ms"],
-                        max_abs_err=fused["max_abs_err"])),
-        (23 * S + 57) * B_CHUNK * 4,
-        OPS_PER_TRIAL_DAY["strategies"] * S * B_CHUNK)
+    phase_general_vs_slab(model_t)
+    observe_general_windows()
     ctrs = counters()
     launches = {"pretax_report": phase_pretax(model, ctrs)}
     launches["default_report"], rep = phase_main_path(model, ctrs)
     phase_tax_reference(model, rep)
     del rep
     torch.cuda.empty_cache()
-    launches["parametric_report"] = phase_parametric(model, model_t, ctrs)
+    launches["parametric_report"], rec["strategies"] = phase_parametric(
+        model, model_t, ctrs)
     phase_parametric_small(model)
     phase_jax_reference(model)
     launches["headline"] = phase_headline(ctrs)
@@ -1481,8 +1397,7 @@ def main():
             bound_by=r["bound_by"], library_ms=r["library_ms"],
             launches_path=path,
             launches_by_path={p: v[k] for p, v in launches.items()},
-            **{x: r[x] for x in ("days", "plain_days", "ms_at_plain_days",
-                                 "fused") if x in r}))
+            **{x: r[x] for x in ("days", "plain_days", "fused") if x in r}))
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -38,7 +38,7 @@ from letf_tpu_torch.models import params as tparams
 from letf_tpu_torch.ops import rng
 from letf_tpu_torch.ops.compose import compose_generate
 from letf_tpu_torch.ops.joint import joint_generate
-from letf_tpu_torch.ops.window import window_offsets, window_tiles
+from letf_tpu_torch.ops.window import window_offsets
 from letf_tpu_torch.utils.device import index_dtype
 
 
@@ -193,32 +193,28 @@ def simulate_regime_paths_spell(model, keys, start_regime, total_days: int,
     return completed.to(out_dtype)
 
 
-def window_series(chans, start_offset, sim_days: int, biases=(),
-                  general: bool = False):
+def window_series(chans, start_offset, sim_days: int, biases=()):
     """The random-start window out[s, b] = x[s + start_offset[b], b]
-    (+ bias[b]) of [T, B] channels: the slab chunk's K2
-    (``window_offsets``) or, ``general``, the general path's K2'
-    (``window_tiles``; ``path_batched.window_series`` on
-    ``window_offsets_pallas``); no window when T == sim_days (every offset
-    is 0 then)."""
+    (+ bias[b]) of [T, B] channels: the slab chunk's K2 and the general
+    path's K2' (``path_batched.window_series`` on ``window_offsets_pallas``)
+    are the one kernel ``window_offsets``; no window when T == sim_days
+    (every offset is 0 then)."""
     biases = list(biases) + [None] * (len(chans) - len(biases))
     if chans[0].shape[0] == sim_days:
         return [c if b is None else c + b[None, :]
                 for c, b in zip(chans, biases)]
-    fn = window_tiles if general else window_offsets
-    return fn(list(chans), start_offset.to(torch.int32), sim_days,
-              biases=biases)
+    return window_offsets(list(chans), start_offset.to(torch.int32),
+                          sim_days, biases=biases)
 
 
 def windowed_chain(model, run_key, trial_ids, antithetic, sim_days: int,
                    buffer_days: int = 0, random_start_method: str = "offset",
                    anchors=None, moment_matching: bool = True,
-                   max_spells: int | None = None, general: bool = False):
+                   max_spells: int | None = None):
     """Start conditions, regime spells, K1 (joint), the moment-matching
     bias 0.1 * (theoretical mean - the trial's mean over all T days) and
-    the window (K2, or K2' on the ``general`` path). ``model``: the
-    port's torch SimModel on the device of ``trial_ids``; ``run_key``: a
-    threefry key. Returns (StartConditions,
+    the K2 window. ``model``: the port's torch SimModel on the device of
+    ``trial_ids``; ``run_key``: a threefry key. Returns (StartConditions,
     int32 ids, seed words, windowed [spy, qqq, tlt, vix, irx, regime]
     [S, B] float32)."""
     T = sim_days + buffer_days
@@ -241,7 +237,7 @@ def windowed_chain(model, run_key, trial_ids, antithetic, sim_days: int,
         biases = [(theo[c] - xc.mean(dim=0)) * 0.1
                   for c, xc in enumerate((x0, x1, x2))]
     chans = window_series([x0, x1, x2, vix_full, irx_full, regime],
-                          sc.start_offset, sim_days, biases, general)
+                          sc.start_offset, sim_days, biases)
     return sc, ids32, seed_words, chans
 
 
@@ -301,8 +297,7 @@ def generate_paths_batched(model, run_key, trial_ids, antithetic,
     assets) and ``finish_path``."""
     sc, ids32, seed_words, chans = windowed_chain(
         model, run_key, trial_ids, antithetic, sim_days, buffer_days,
-        random_start_method, anchors, moment_matching, max_spells,
-        general=True)
+        random_start_method, anchors, moment_matching, max_spells)
     _, _, tlt, vix, irx, regime = chans
     etf, spy_a, qqq_a, cash, jc, ls, cs = compose_generate(
         tparams.pack_stress_params(model), tparams.pack_asset_params(model),

@@ -1,14 +1,13 @@
 """Per-trial random-start windowing (kernels K2 and K2').
 
 Port of ``letf_tpu/ops/pallas_window.py::_window_kernel_4d`` (K2, entry
-``window_offsets_slab``: ``window_offsets`` here, the production chunk's)
-and of ``_window_kernel`` (K2', entries ``_window_tiles`` and
-``window_offsets_pallas``: ``window_tiles`` here, the general path's):
-``out[s, b] = x[s + off[b], b] (+ bias[b])``, bitwise a gather, NaN
-payloads included. The TPU kernels' shift-select tree and lookahead tails
-worked around the lack of a fast gather; on the GPU both are one direct
-offset load (``csrc/window.cu``), up to six channels per launch; each
-entry counts its own launches.
+``window_offsets_slab``, the production chunk's) and of ``_window_kernel``
+(K2', entries ``_window_tiles`` and ``window_offsets_pallas``, the general
+path's): ``out[s, b] = x[s + off[b], b] (+ bias[b])``, bitwise a gather,
+NaN payloads included. The TPU kernels' shift-select tree and lookahead
+tails worked around the lack of a fast gather; on the GPU both are one
+direct offset load (``csrc/window.cu``), up to six channels per launch,
+behind the one wrapper ``window_offsets``.
 
 Layout ``[T, B]`` in, ``[S, B]`` out. Offsets must lie in [0, T - S].
 """
@@ -21,8 +20,7 @@ import torch
 
 from letf_tpu_torch.ops import _build
 
-LAUNCHES = 0            # kernel launches by window_offsets (K2)
-LAUNCHES_TILES = 0      # kernel launches by window_tiles (K2')
+LAUNCHES = 0            # kernel launches by window_offsets on CUDA tensors
 MAX_CHANNELS = 6
 
 
@@ -47,24 +45,6 @@ def window_offsets(xs, offs, sim_days: int, biases=None):
     biases = list(biases) if biases is not None else [None] * len(xs)
     if offs.device.type == "cpu":
         return window_plain(xs, offs, sim_days, biases)
-    outs = _launch(xs, offs, sim_days, biases)
-    LAUNCHES += 1
-    return outs
-
-
-def window_tiles(xs, offs, sim_days: int, biases=None):
-    """K2' (the general path's window): as ``window_offsets``."""
-    global LAUNCHES_TILES
-    biases = list(biases) if biases is not None else [None] * len(xs)
-    if offs.device.type == "cpu":
-        return window_plain(xs, offs, sim_days, biases)
-    outs = _launch(xs, offs, sim_days, biases)
-    LAUNCHES_TILES += 1
-    return outs
-
-
-def _launch(xs, offs, sim_days: int, biases):
-    """One launch of csrc/window.cu for up to six CUDA channels."""
     if not 0 < len(xs) <= MAX_CHANNELS or len(biases) != len(xs):
         raise ValueError(f"window_offsets: 1..{MAX_CHANNELS} channels")
     T, B = xs[0].shape
@@ -98,4 +78,5 @@ def _launch(xs, offs, sim_days: int, biases):
                          offs.data_ptr(), T, sim_days, B,
                          _build.stream_of(offs))
     _build.check(rc, "letf_window")
+    LAUNCHES += 1
     return outs

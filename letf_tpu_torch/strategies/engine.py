@@ -148,7 +148,10 @@ def run_strategies_batch(path, sig: SignalSet, apply_costs: bool = True,
     per-day fields). ``cashflows``: optional [S] per-day dollar flows
     applied to every strategy's equity after the day's return. Without
     emission: kernel K4 on the 23 channels of the path and its signals
-    (its plain version on the CPU)."""
+    (its plain version on the CPU), always in float32, as the TPU kernel
+    is: a float64 run on the CPU gets float32 summaries there, where the
+    JAX package's float64 scan stays in float64. With emission the scan
+    below runs in the path's dtype."""
     if not emit_trades:
         cf = (None if cashflows is None
               else torch.as_tensor(cashflows).to(path.vix.device))
