@@ -8,12 +8,15 @@ Phases, each raising on failure:
 1. The card: torch.cuda must be available; prints nvidia-smi's name and
    power limit.
 2. Build: one nvcc per letf_tpu_torch/csrc/*.cu, started together, linked
-   into build/letf_tpu_torch/.
+   into build/letf_tpu_torch/; then the kernel_info line: each kernel's
+   registers, shared memory, spills and resident blocks/warps an SM at its
+   launch shape (_build.kernel_info).
 3. Kernels: each CUDA kernel against its plain PyTorch version on the card,
    on the same inputs, at the main paths' shapes (B=16,384 trials, 30
    years + 5-year buffer; with --quick a 252-day window and a 126-day
    buffer): K1 (joint) within rtol 1e-4 / VIX atol 1e-3, K2 (window)
-   bitwise, K3 (compose + strategies) within
+   bitwise (independent, antithetic-paired and equal offsets, a ragged B
+   of 650, a span past one 32-trial ring), K3 (compose + strategies) within
    compose_strategies.check_parity's bounds, K5 (compose) within rtol 1e-5
    / atol 1e-6, K7 (bridge merge, merge and valley kinds, [2S, 600] and
    [2S, 2,048] with 0/2/4 payloads) and K8 (wash matching, [S, 650])
@@ -21,12 +24,13 @@ Phases, each raising on failure:
    (K4 follows in phase 8, on the main path's channels; with --quick here,
    at 16,384 x 252 days). Each kernel's time beside the plain version's,
    its bound and, where one PyTorch call computes the same function, that
-   call's time.
+   call's time; K2 and K3 as min/median/max over 5 and 3 runs.
 4. Reports through kernels vs plain versions on the card: 1,024 trials x
    0.5 year pre-tax, and the default sampled report at 1,024 x 1 year.
 5. The general path against the slab path (K1, K2, K3): with the emitting
    engine (16,384 trials, 2 years + 2-year buffer) and without emission
-   (K1, K2', K5, signals, K4 in both modes; 16,384 trials x 30 years).
+   (K1, K2', K5, signals, K4 in both modes; 16,384 trials x 30 years),
+   K4's fused-signals mode bitwise the slab path's K3.
 6. The pre-tax report, 65,536 x 30 years (the first slice's main path).
 7. The default report, monte_carlo_report(default_sim_model(), 30,
    1,048,576 trials, seed 2, chunks of 16,384, tax_mode="sampled") (the
@@ -34,7 +38,7 @@ Phases, each raising on failure:
    reference's, its post-tax tables against the reference's exact-all
    taxes and its sampled estimator's spread (phase_tax_reference).
 8. This slice's main path, monte_carlo_report(default_sim_model(), 30,
-   65,536 trials, seed 2, engine_mode="parametric") with its default
+   32,768 trials, seed 2, engine_mode="parametric") with its default
    sampled taxes, the seconds of each stage of one of its chunks, K4
    (strategies) against its plain version on that chunk's channels within
    check_parity's bounds (channel mode over 16,384 x 7,560 days,
@@ -50,8 +54,8 @@ Phases, each raising on failure:
 11. torch.profiler breakdowns of one pre-tax chunk and of the post-tax part
    of a one-chunk sampled report.
 Every path runs with the launch counters set to 0 just before it and read
-just after. The second-to-last line is the kernels JSON, the last
-{"ok": true, ...}.
+just after. The last lines are the kernel_info JSON, nvidia-smi's name
+and power limit, the kernels JSON and {"ok": true, ...}.
 """
 
 from __future__ import annotations
@@ -115,6 +119,27 @@ def timed(fn, reps: int, warm: bool = True):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps, out
+
+
+def spread(fn, reps: int):
+    """([min, median, max] milliseconds of fn() over reps runs, each timed
+    alone by CUDA events after one warm-up run, the last run's result):
+    times spread 15-50% between calls, so one reading is not a time."""
+    fn()
+    ms = []
+    for _ in range(reps):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        torch.cuda.synchronize()
+        start.record()
+        out = fn()
+        end.record()
+        torch.cuda.synchronize()
+        ms.append(start.elapsed_time(end))
+    return [min(ms), float(np.median(ms)), max(ms)], out
+
+
+def fmt_spread(v):
+    return f"{v[1]:.3f} ms (min {v[0]:.3f}, max {v[2]:.3f})"
 
 
 GENERAL_WINDOWS = 0     # window_offsets launches inside the general path
@@ -248,24 +273,64 @@ def phase_kernels(model_t, quick: bool):
     chans = windowed(model_t, list(xk) + [regime], offs, sim)
     del xk
     ka = k3_args(model_t, ids, sw, chans)
-    ms, got = timed(lambda: k3.compose_strategies(*ka), 1)
+    k3_ms, got = spread(lambda: k3.compose_strategies(*ka), 3)
+    ms = k3_ms[1]
     plain_ms, ref = timed(lambda: k3.compose_strategies_plain(*ka), 1,
                           warm=False)
     st = k3.check_parity(dict(zip(k3.OUTPUTS, got)),
                          dict(zip(k3.OUTPUTS, ref)),
                          exact=("path_finite", "vix_min", "vix_max",
                                 "regime_high_days"))
+    # The same kernel on the chunk's first 4,096 trials: one block an SM
+    # instead of four.
+    q = B_CHUNK // 4
+    kq = (*ka[:2], ka[2][:q], ka[3], *(c[:, :q].contiguous() for c in ka[4:]))
+    k3q_ms, _ = spread(lambda: k3.compose_strategies(*kq), 3)
     log(f"K3 compose_strategies vs plain at B={B_CHUNK} S={sim}: {st}; "
-        f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
+        f"kernel {fmt_spread(k3_ms)} over 3 runs (at B={B_CHUNK // 4}: "
+        f"{fmt_spread(k3q_ms)}), plain {plain_ms:.3f} ms")
     rec["compose_strategies"] = with_bound(
-        dict(max_abs_err=st["max_abs_err"], ms=ms, plain_ms=plain_ms),
+        dict(max_abs_err=st["max_abs_err"], ms=ms, plain_ms=plain_ms,
+             ms_spread=k3_ms, quarter_ms_spread=k3q_ms),
         6 * sim * B_CHUNK * 4 + 65 * B_CHUNK * 4,
         OPS_PER_TRIAL_DAY["compose_strategies"] * sim * B_CHUNK)
     del got, ref
     rec["compose"] = phase_k5(ka)
     del chans, ka
 
-    # K2 bitwise, NaN payloads and -0.0 included.
+    rec["window"] = phase_k2(T, sim)
+    rec["window_tiles"] = dict(rec["window"])     # the same kernel and call
+    torch.cuda.empty_cache()
+    rec["sort_bridge"] = phase_k7(sim)
+    rec["wash"] = phase_k8(sim)
+    torch.cuda.empty_cache()
+    return rec
+
+
+def window_case(g, T, B, sim, offs, n_ch=2):
+    """K2 against its plain version, bitwise, on n_ch random [T, B]
+    channels (a bias on the first) at the offsets ``offs``."""
+    from letf_tpu_torch.ops import window
+
+    xs = [torch.randn((T, B), generator=g, device="cuda") for _ in range(n_ch)]
+    xs[0][1, 0] = float("nan")
+    xs[-1][2, B - 1] = -0.0
+    bias = [torch.randn(B, generator=g, device="cuda")] + [None] * (n_ch - 1)
+    got = window.window_offsets(xs, offs, sim, biases=bias)
+    for a, b in zip(got, window.window_plain(xs, offs, sim, biases=bias)):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+def phase_k2(T, sim):
+    """K2 against its plain version, bitwise (NaN payloads and -0.0
+    included): the six channels at the main path's shape with independent
+    offsets and with antithetic-paired ones (the chain's: trials 2k and
+    2k + 1 share an offset), each timed over 5 runs; then a ragged B of 650
+    (the replay's K2'), all offsets equal, and a span wider than a 32-trial
+    ring holds (T - S = 3,000 at S = 2,520: the narrower-strip branch).
+    Returns the record of the kernels line."""
+    from letf_tpu_torch.ops import window
+
     g = torch.Generator(device="cuda").manual_seed(0)
     xs = [torch.randn((T, B_CHUNK), generator=g, device="cuda")
           for _ in range(5)]
@@ -273,37 +338,56 @@ def phase_kernels(model_t, quick: bool):
                < 0.3).to(torch.float32))
     xs[0][7, 3] = float("nan")
     xs[1][11, 5] = -0.0
-    woffs = torch.randint(0, T - sim + 1, (B_CHUNK,), generator=g,
-                          device="cuda", dtype=torch.int32)
     bias = [torch.randn(B_CHUNK, generator=g, device="cuda")
             for _ in range(3)] + [None] * 3
-    ms, wk = timed(lambda: window.window_offsets(xs, woffs, sim,
-                                                 biases=bias), 5)
-    plain_ms, wp = timed(lambda: window.window_plain(xs, woffs, sim,
-                                                     biases=bias), 3)
-    for a, b in zip(wk, wp):
-        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    indep = torch.randint(0, T - sim + 1, (B_CHUNK,), generator=g,
+                          device="cuda", dtype=torch.int32)
+    paired = torch.randint(0, T - sim + 1, (B_CHUNK // 2,), generator=g,
+                           device="cuda",
+                           dtype=torch.int32).repeat_interleave(2)
+    equal = torch.full((B_CHUNK,), (T - sim) // 2, device="cuda",
+                       dtype=torch.int32)
+    ms = {}
+    for name, offs in (("independent", indep), ("antithetic-paired", paired),
+                       ("all equal", equal)):
+        ms[name], wk = spread(lambda: window.window_offsets(
+            xs, offs, sim, biases=bias), 5)
+        wp = window.window_plain(xs, offs, sim, biases=bias)
+        for a, b in zip(wk, wp):
+            assert torch.equal(a.view(torch.int32), b.view(torch.int32)), name
+        del wk, wp
+        log(f"K2 window vs plain at B={B_CHUNK} T={T} S={sim}, 6 channels, "
+            f"{name} offsets: bitwise equal; kernel {fmt_spread(ms[name])} "
+            f"over 5 runs")
+    plain_ms, _ = timed(lambda: window.window_plain(xs, indep, sim,
+                                                    biases=bias), 3)
     # The one PyTorch call that computes the window: a gather over the six
     # channels side by side (the bias add left out).
     stacked = torch.cat(xs, dim=1)
     gidx = (torch.arange(sim, device="cuda")[:, None]
-            + woffs.long()[None, :]).repeat(1, 6)
+            + indep.long()[None, :]).repeat(1, 6)
     lib_ms, _ = timed(lambda: torch.gather(stacked, 0, gidx), 5)
-    del stacked, gidx
-    log(f"K2/K2' window vs plain at B={B_CHUNK} T={T} S={sim}, 6 channels: "
-        f"bitwise equal; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
-        f"torch.gather {lib_ms:.3f} ms")
-    rec["window"] = with_bound(dict(max_abs_err=0.0, ms=ms,
-                                    plain_ms=plain_ms),
-                               (2 * 6 * sim + 4) * B_CHUNK * 4,
-                               3 * sim * B_CHUNK, lib_ms)
-    rec["window_tiles"] = dict(rec["window"])     # the same kernel and call
-    del xs, wk, wp
+    del stacked, gidx, xs
     torch.cuda.empty_cache()
-    rec["sort_bridge"] = phase_k7(sim)
-    rec["wash"] = phase_k8(sim)
+    log(f"K2 plain at independent offsets {plain_ms:.3f} ms, torch.gather "
+        f"{lib_ms:.3f} ms")
+    window_case(g, T, 650, sim, torch.randint(
+        0, T - sim + 1, (650,), generator=g, device="cuda", dtype=torch.int32))
+    S2, T2 = 2520, 2520 + 3000
+    window_case(g, T2, B_CHUNK, S2, torch.randint(
+        0, T2 - S2 + 1, (B_CHUNK,), generator=g, device="cuda",
+        dtype=torch.int32))
+    log(f"K2 window vs plain: bitwise at B=650 (ragged strip), T={T}, "
+        f"S={sim}; and at B={B_CHUNK}, T={T2}, S={S2} (spans past one "
+        f"32-trial ring)")
     torch.cuda.empty_cache()
-    return rec
+    return with_bound(dict(max_abs_err=0.0, ms=ms["independent"][1],
+                           plain_ms=plain_ms,
+                           ms_spread=ms["independent"],
+                           paired_ms_spread=ms["antithetic-paired"],
+                           equal_ms_spread=ms["all equal"]),
+                      (2 * 6 * sim + 4) * B_CHUNK * 4, 3 * sim * B_CHUNK,
+                      lib_ms)
 
 
 # K5 against its plain version: every ETF plane, the adjusted SPY/QQQ and
@@ -556,13 +640,13 @@ def phase_general_vs_slab(model_t):
         runs = {}
         if emit:
             r = run_strategies_batch(p, sig, emit_trades=True)
-            runs["emitting engine"] = (r.final_wealth, r.num_trades)
+            runs["emitting engine"] = (r.final_wealth, r.num_trades, None)
         else:
             chans = k4.channels_from(p, sig)
             del sig
-            runs["K4 channel mode"] = k4.strategies_run(chans)[:2]
+            runs["K4 channel mode"] = k4.strategies_run(chans)
             runs["K4 fused-signals mode"] = k4.strategies_run(
-                chans[:k4.N_FUSED], fused_signals=True)[:2]
+                chans[:k4.N_FUSED], fused_signals=True)
             del chans
         torch.cuda.synchronize()
         t_gen = time.perf_counter() - t0
@@ -572,10 +656,18 @@ def phase_general_vs_slab(model_t):
         assert torch.equal(sm["jump_days"], p.jump_days)
         torch.testing.assert_close(sm["liq_mean"], p.liq_mean, rtol=0,
                                    atol=1e-6)
-        for what, (fw, nt) in runs.items():
+        for what, (fw, nt, mdd) in runs.items():
             bounds = (CHANNEL_BOUNDS if what == "K4 channel mode"
                       else SLAB_BOUNDS)
             stats = general_vs_slab_stats(fw, nt, sm, bounds)
+            if what == "K4 fused-signals mode":
+                # K3 (the slab path's) runs K4's day math split over warps:
+                # the same operations, so the same bits.
+                for a, b in ((fw, sm["final_wealth"]),
+                             (nt, sm["num_trades"]), (mdd, sm["max_dd"])):
+                    assert torch.equal(a.view(torch.int32),
+                                       b.view(torch.int32)), what
+                stats["bitwise"] = True
             log(f"general path + {what} vs slab path at B={B_CHUNK}, "
                 f"{S} days + {buf}-day buffer: {stats} (bounds {bounds}); "
                 f"valid and jump days equal; general path + strategies "
@@ -978,14 +1070,16 @@ def parametric_breakdown(model_t, B=B_CHUNK, years=30):
 
 def phase_parametric(model, model_t, counters):
     """This slice's main path: monte_carlo_report(default_sim_model(), 30,
-    num_simulations=65,536, seed=2, engine_mode="parametric") with its
+    num_simulations=32,768, seed=2, engine_mode="parametric") with its
     default sampled taxes and chunks of 16,384 (K4 at the production chunk
     shape), the counters set to 0 just before and read just after; then a
     stage breakdown of one chunk, and K4 against its plain version on that
     chunk's channels (phase_k4). Returns (the launches, K4's record)."""
     from letf_tpu_torch.parallel import mc_runner
 
-    n, years = 65_536, 30
+    # Two chunks: its time is ~90% torch draw glue, and the smoke's budget
+    # goes to holding the kernels at their shapes (K4 at 16,384 x 7,560).
+    n, years = 32_768, 30
     reset(counters)
     stages = {}
     torch.cuda.synchronize()
@@ -1358,6 +1452,8 @@ def main():
     _build.library()
     log(f"build: {time.perf_counter() - t0:.1f} s "
         f"({_build.library_path().name})")
+    info = {"kernel_info": _build.kernel_info()}
+    log(json.dumps(info))
 
     model = default_sim_model()
     model_t = from_numpy(model, "cuda", torch.float32)
@@ -1366,6 +1462,7 @@ def main():
         rec["strategies"] = phase_k4(general_channels(model_t, QUICK["sim"]))
         rec["gbm"] = phase_k6(n=65_536, years=1, reps=2, gate=False)
         log(json.dumps(rec))
+        print(json.dumps(info))
         print(smi)
         return
     rec["gbm"] = phase_k6()
@@ -1397,8 +1494,11 @@ def main():
             bound_by=r["bound_by"], library_ms=r["library_ms"],
             launches_path=path,
             launches_by_path={p: v[k] for p, v in launches.items()},
-            **{x: r[x] for x in ("days", "plain_days", "fused") if x in r}))
+            **{x: r[x] for x in ("days", "plain_days", "fused", "ms_spread",
+                                 "paired_ms_spread", "equal_ms_spread",
+                                 "quarter_ms_spread") if x in r}))
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")
+    print(json.dumps(info))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

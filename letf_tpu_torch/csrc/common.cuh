@@ -59,3 +59,27 @@ static __device__ __forceinline__ float jclip(float x, float lo, float hi) {
 }
 // 0/1 float of a predicate (NaN compares are already false).
 static __device__ __forceinline__ float f01(bool p) { return p ? 1.0f : 0.0f; }
+
+// What the card gives kernel fn at a launch of `threads` threads and
+// `dyn_smem` bytes of dynamic shared memory, into out[7]: registers a
+// thread, static shared bytes, dynamic shared bytes, local (spill) bytes a
+// thread, threads a block, resident blocks an SM, resident warps an SM.
+// Each source's letf_info_* entry calls it for its kernels (info.cu).
+static inline int letf_fill_info(const void* fn, int threads, int dyn_smem,
+                                 int* out) {
+  cudaFuncAttributes a;
+  cudaError_t err = cudaFuncGetAttributes(&a, fn);
+  if (err != cudaSuccess) return (int)err;
+  int blocks = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn, threads,
+                                                      (size_t)dyn_smem);
+  if (err != cudaSuccess) return (int)err;
+  out[0] = a.numRegs;
+  out[1] = (int)a.sharedSizeBytes;
+  out[2] = dyn_smem;
+  out[3] = (int)a.localSizeBytes;
+  out[4] = threads;
+  out[5] = blocks;
+  out[6] = blocks * ((threads + 31) / 32);
+  return 0;
+}

@@ -120,3 +120,7 @@ extern "C" int letf_compose(const float* sp, const float* ap, const float* kc,
   }
   return (int)cudaGetLastError();
 }
+
+extern "C" int letf_info_compose(int* out) {
+  return letf_fill_info((const void*)compose_kernel, 32, 0, out);
+}

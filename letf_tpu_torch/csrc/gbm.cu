@@ -72,3 +72,7 @@ extern "C" int letf_gbm(unsigned int w0, unsigned int w1, int n_trials,
         w0, w1, n_trials, n_days, mu, sigma, lev, cost, out_w, out_mdd);
   return (int)cudaGetLastError();
 }
+
+extern "C" int letf_info_gbm(int* out) {
+  return letf_fill_info((const void*)gbm_kernel, 128, 0, out);
+}

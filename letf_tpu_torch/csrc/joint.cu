@@ -199,3 +199,7 @@ extern "C" int letf_joint(const float* params, const float* cheb, int n_cheb,
 extern "C" const char* letf_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
+
+extern "C" int letf_info_joint(int* out) {
+  return letf_fill_info((const void*)joint_kernel, 32, 0, out);
+}

@@ -94,3 +94,7 @@ extern "C" int letf_merge(int n_arr, const void* const* ins,
   }
   return (int)cudaGetLastError();
 }
+
+extern "C" int letf_info_merge(int* out) {
+  return letf_fill_info((const void*)merge_kernel, 128, 0, out);
+}

@@ -10,7 +10,7 @@
 //   yesterday's channel values carried in registers, and S7 today's;
 // - fused-signals mode (FUSED = true): only the first 7 channels; the 16
 //   signals are computed in the kernel from ring buffers (the same
-//   signals_step as kernel K3).
+//   signals_read / signals_step as kernel K3).
 // The day math is strategies_day.cuh, shared with K3, so the strategies'
 // arithmetic is one copy. spy_price is a channel in channel mode (not
 // compounded here), as in the reference, so SMA compares see the same bits
@@ -62,10 +62,13 @@ strategies_kernel(const float* __restrict__ cf, const float* __restrict__ kc,
     const float cft = cf != nullptr ? cf[t] : 0.0f;
     float cur[NSIG];
     if constexpr (FUSED) {
+      const RingIn rin = signals_read(rg, t);
       if (t == 0)
-        signals_step<true>(sum, rg, t, st.psig[G_PRICE], r_tqqq, r_spy, cur);
+        signals_step<true>(sum, rg, t, st.psig[G_PRICE], r_tqqq, r_spy, rin,
+                           cur);
       else
-        signals_step<false>(sum, rg, t, st.psig[G_PRICE], r_tqqq, r_spy, cur);
+        signals_step<false>(sum, rg, t, st.psig[G_PRICE], r_tqqq, r_spy, rin,
+                            cur);
     } else {
 #pragma unroll
       for (int i = 0; i < NSIG; ++i) cur[i] = ch[7 + i][at];
@@ -81,6 +84,15 @@ strategies_kernel(const float* __restrict__ cf, const float* __restrict__ kc,
 }
 
 }  // namespace
+
+// Registers, shared memory and resident blocks of the kernel in its
+// channel (fused = 0) or fused-signals mode at its launch shape.
+extern "C" int letf_info_strategies(int fused, int* out) {
+  return fused ? letf_fill_info((const void*)strategies_kernel<true>, 32, 0,
+                                out)
+               : letf_fill_info((const void*)strategies_kernel<false>, 32, 0,
+                                out);
+}
 
 // chans: device array of the channel pointers (23, or 7 when fused); rings
 // [RING_ROWS, B] scratch (fused only); out [57, B].

@@ -1,14 +1,29 @@
 // The strategy day math shared by kernel K3 (compose_strategies.cu) and
 // kernel K4 (strategies.cu): the 16 rolling signals from ring buffers and
-// exact add/subtract window sums (signals_step), and one day of the 19
-// strategies with their shift(1) signal reads, the cashflow overlay, the
-// ruin floor and the running drawdowns (strategies_step). The semantics are
-// letf_tpu/ops/pallas_strategies.py::_strategy_kernel's day body
-// (:499-966) line for line: pandas min_periods NaN rules, the reference
-// quirks S7 (no cash on the idle fraction, today's signal), S8 (no costs),
-// S9 (frozen on NaN-signal days), S19 (5% rebalance threshold), benchmarks
-// compounding from day 0 while the loop strategies start on day 1. Day 0
-// is a static specialisation (FIRST), as in the reference.
+// exact add/subtract window sums (signals_read + signals_step), and one day
+// of the 19 strategies with their shift(1) signal reads, the cashflow
+// overlay, the ruin floor and the running drawdowns (strategies_step). The
+// semantics are letf_tpu/ops/pallas_strategies.py::_strategy_kernel's day
+// body (:499-966) line for line: pandas min_periods NaN rules, the
+// reference quirks S7 (no cash on the idle fraction, today's signal), S8
+// (no costs), S9 (frozen on NaN-signal days), S19 (5% rebalance
+// threshold), benchmarks compounding from day 0 while the loop strategies
+// start on day 1. Day 0 is a static specialisation (FIRST), as in the
+// reference.
+//
+// The group split. No strategy reads another's carries: each reads the
+// day's inputs (DayCtx) and its own equity, allocation, trade count,
+// running max and drawdown (plus S4/S5/S8's positions and S6's sleeves),
+// and settles them itself (settle / s6's own). So the 19 strategies fall
+// into NGROUP groups, strategies_group<G>, balanced by cost (S6's
+// leverage-drift turnover and the powf of S11, S14 and S15 are the heavy
+// ones): K4 runs the four groups in order on one thread (strategies_step),
+// K3 runs each group on a warp of its own. Every value is computed by the
+// same expression, in the same order, either way, so K3 and K4's
+// fused-signals mode stay bitwise equal. Likewise the signal pass is split
+// into its ring reads (signals_read) and the day's arithmetic, so that K3
+// can issue day t + 1's reads before day t's writes: a read is of a day at
+// least 5 back, never of the day before.
 //
 // The plain PyTorch versions are ops/compose_strategies.py::signals_step
 // and ::strategies_step.
@@ -20,6 +35,7 @@ namespace strategies_day {
 
 constexpr int NS = 19;
 constexpr int NSIG = 16;
+constexpr int NGROUP = 4;
 constexpr int RW_X = 64, RW_SPY = 128, RW_P = 256, RW_S20 = 8;
 constexpr int R_X = 0, R_SPY = RW_X, R_P = RW_X + RW_SPY,
               R_S20 = RW_X + RW_SPY + RW_P;
@@ -40,6 +56,12 @@ enum { G_PRICE, G_STD20_MP20, G_DSTD20_MP20, G_STD5, G_STD10, G_STD20,
 // Running window sums.
 enum { S1_5, S2_5, S1_10, S2_10, S1_20, S2_20, S1_60, S2_60, S3_60, N1_20,
        N2_20, SPY1_126, P1_100, P1_200, G1_14, L1_14, NSUM };
+
+// The group of strategy i (0-based): S1-S6 | S7-S11 | S12-S14, S16 |
+// S15, S17-S19.
+__host__ __device__ constexpr int group_of(int i) {
+  return i <= 5 ? 0 : i <= 10 ? 1 : (i <= 13 || i == 15) ? 2 : 3;
+}
 
 // Equity below float32's smallest normal is ruin (0), as in the reference,
 // which runs with subnormals flushed to zero: an equity that underflows
@@ -62,7 +84,8 @@ __device__ __forceinline__ float guard(float v, float eps, float def,
   return bsel(mm, v, def);
 }
 
-// Per-trial strategy carries.
+// Per-trial strategy carries. A K3 strategy warp keeps the whole struct but
+// touches only its group's fields; the rest are dead and take no register.
 struct StratState {
   float eq[NS], pa[NS], tr[NS], rm[NS], dd[NS];
   float pos4, pos5, pos8, s6p0, s6p1, s6e0, s6e1, pvix;
@@ -87,40 +110,54 @@ __device__ __forceinline__ void init_strategies(StratState& st,
 }
 
 // Where one trial's signal rings live: a wrapper-allocated global scratch
-// [RING_ROWS, B], trial-contiguous, so each access coalesces across a warp.
+// [RING_ROWS, ld], trial-contiguous, so each access coalesces across a warp.
 struct Rings {
   float* base;
-  int b, B;
+  int b, ld;
   __device__ __forceinline__ float& at(int row0, int W, int t, int lag) const {
-    return base[(size_t)(row0 + ((t - lag) & (W - 1))) * B + b];
+    return base[(size_t)(row0 + ((t - lag) & (W - 1))) * ld + b];
   }
 };
 
 __device__ __forceinline__ void init_signals(float* sum, const Rings& rg) {
 #pragma unroll
   for (int i = 0; i < NSUM; ++i) sum[i] = 0.0f;
-  for (int r = 0; r < RING_ROWS; ++r) rg.base[(size_t)r * rg.B + rg.b] = 0.0f;
+  for (int r = 0; r < RING_ROWS; ++r) rg.base[(size_t)r * rg.ld + rg.b] = 0.0f;
+}
+
+// The ring values day t's signals read (all of days t - 5 and earlier).
+struct RingIn {
+  float x5, x10, x20, x60, spy126, p100, p200, p14, p15, s20l5;
+};
+
+__device__ __forceinline__ RingIn signals_read(const Rings& rg, int t) {
+  RingIn r;
+  r.x5 = rg.at(R_X, RW_X, t, 5); r.x10 = rg.at(R_X, RW_X, t, 10);
+  r.x20 = rg.at(R_X, RW_X, t, 20); r.x60 = rg.at(R_X, RW_X, t, 60);
+  r.spy126 = rg.at(R_SPY, RW_SPY, t, 126);
+  r.p100 = rg.at(R_P, RW_P, t, 100); r.p200 = rg.at(R_P, RW_P, t, 200);
+  r.p14 = rg.at(R_P, RW_P, t, 14); r.p15 = rg.at(R_P, RW_P, t, 15);
+  r.s20l5 = rg.at(R_S20, RW_S20, t, 5);
+  return r;
 }
 
 // Today's 16 signals (cur, in G_* order) from today's TQQQ and SPY
-// returns; prev_price is yesterday's SPY price signal. Updates the window
-// sums and writes today's values into the rings.
+// returns and the ring values signals_read gave for day t; prev_price is
+// yesterday's SPY price signal. Updates the window sums and writes today's
+// values into the rings.
 template <bool FIRST>
 __device__ __forceinline__ void signals_step(float* sum, const Rings& rg,
                                             int t, float prev_price,
                                             float r_tqqq, float r_spy,
-                                            float* cur) {
+                                            const RingIn& in, float* cur) {
   const float NaN = __int_as_float(0x7fc00000);
   const float price = FIRST ? 100.0f * (1.0f + r_spy)
                             : prev_price * (1.0f + r_spy);
   const float x = r_tqqq;
   const float neg = jmin(x, 0.0f);
-  const float x5 = rg.at(R_X, RW_X, t, 5), x10 = rg.at(R_X, RW_X, t, 10);
-  const float x20 = rg.at(R_X, RW_X, t, 20), x60 = rg.at(R_X, RW_X, t, 60);
-  const float spy126 = rg.at(R_SPY, RW_SPY, t, 126);
-  const float p100 = rg.at(R_P, RW_P, t, 100), p200 = rg.at(R_P, RW_P, t, 200);
-  const float p14 = rg.at(R_P, RW_P, t, 14), p15 = rg.at(R_P, RW_P, t, 15);
-  const float s20l5 = rg.at(R_S20, RW_S20, t, 5);
+  const float x5 = in.x5, x10 = in.x10, x20 = in.x20, x60 = in.x60;
+  const float spy126 = in.spy126, p100 = in.p100, p200 = in.p200;
+  const float p14 = in.p14, p15 = in.p15, s20l5 = in.s20l5;
   auto leave = [&](int lag) { return t >= lag ? 1.0f : 0.0f; };
   auto upd = [&](int i, float add, float sub, int lag) {
     sum[i] = sum[i] + add - leave(lag) * sub;
@@ -194,36 +231,73 @@ __device__ __forceinline__ void signals_step(float* sum, const Rings& rg,
   rg.at(R_S20, RW_S20, t, 0) = cur[G_STD20];
 }
 
-// One day of the 19 strategies. cur: today's signals (G_* order; S7 reads
-// its vol signal unshifted, every other strategy yesterday's, st.psig);
-// cft: the day's cashflow. Rolls st.psig to cur and st.pvix to vix.
+// What every strategy reads of one day: the constants, today's returns,
+// cash, regime, VIX and cashflow, today's signals (S7 reads its vol signal
+// unshifted) and yesterday's (prev, pp) and VIX.
+struct DayCtx {
+  const float* K;
+  bool costs;
+  int t;
+  float r_tqqq, r_spy, r_sso, r_tmf, cashr, reg, vix, cft;
+  const float* cur;
+  const float* prev;
+  float pp, vix_prev;
+};
+
+// Strategy i's equity after the day's return, cashflow overlay, ruin floor,
+// trade count, running max, drawdown and allocation (every strategy but S6,
+// which settles in s6).
 template <bool FIRST>
-__device__ __forceinline__ void strategies_step(StratState& st, const float* K,
-                                               bool apply_costs, int t,
-                                               float r_tqqq, float r_spy,
-                                               float r_sso, float r_tmf,
-                                               float cashr, float reg,
-                                               float vix, const float* cur,
-                                               float cft) {
-  const float vix_prev = st.pvix;
-  const float pp = st.psig[G_PRICE];                 // NaN on day 0
-  const float* prev = st.psig;
-
-  float rets[NS], traded[NS], pa_new[NS];
-  // ---- S1-S3 benchmarks ----
-  rets[0] = r_tqqq; rets[1] = r_spy; rets[2] = r_sso;
-#pragma unroll
-  for (int i = 0; i < 3; ++i) {
-    traded[i] = 0.0f;
-    pa_new[i] = st.pa[i];
+__device__ __forceinline__ void settle(StratState& st, int i, float ret,
+                                       float traded, float pa_new,
+                                       float cft) {
+  const float eq_new = ruin_floor(
+      ((FIRST && i >= 3) ? st.eq[i] : st.eq[i] * (1.0f + ret)) + cft);
+  if (FIRST) {
+    st.rm[i] = eq_new;
+    st.eq[i] = eq_new;
+    return;
   }
+  st.tr[i] = st.tr[i] + traded;
+  const float rm_new = jmax(st.rm[i], eq_new);
+  const float safe_rm = asel(f01(rm_new > 0.0f), jmax(rm_new, 1e-30f), 1.0f);
+  const float ddv = (eq_new - rm_new) / safe_rm;
+  st.dd[i] = jmax(st.dd[i], -ddv);
+  st.rm[i] = rm_new;
+  st.eq[i] = eq_new;
+  st.pa[i] = pa_new;
+}
 
-  // ---- S4/S5 SMA state machines ----
+// The vol-target family's return and trade flag at allocation alloc.
+__device__ __forceinline__ void vol_family(const StratState& st,
+                                           const DayCtx& c, int i,
+                                           float alloc, bool include_cash,
+                                           float& ret, float& trm) {
+  const float turnover = fabsf(alloc - st.pa[i]);
+  trm = f01(turnover > TURNOVER_EPS);
+  ret = include_cash ? alloc * c.r_tqqq + (1.0f - alloc) * c.cashr
+                     : alloc * c.r_tqqq;
+  if (c.costs) ret = ret - trm * turnover * SPREAD;
+}
+
+// ---- S1-S3 benchmarks ----
+template <bool FIRST>
+__device__ __forceinline__ void s_bench(StratState& st, const DayCtx& c) {
+  const float r[3] = {c.r_tqqq, c.r_spy, c.r_sso};
+#pragma unroll
+  for (int i = 0; i < 3; ++i) settle<FIRST>(st, i, r[i], 0.0f, st.pa[i], c.cft);
+}
+
+// ---- S4/S5 SMA state machines ----
+template <bool FIRST>
+__device__ __forceinline__ void s_sma(StratState& st, const DayCtx& c) {
+  const float* K = c.K;
   float new4, new5, flip4, flip5;
   if (FIRST) {
     new4 = st.pos4; new5 = st.pos5; flip4 = 0.0f; flip5 = 0.0f;
   } else {
-    const float sma1 = prev[G_SMA200_MP1];
+    const float pp = c.pp;
+    const float sma1 = c.prev[G_SMA200_MP1];
     const float buy4 = f01(pp >= sma1), sell4 = f01(pp < sma1);
     new4 = asel(f01(st.pos4 == 1.0f), 1.0f - sell4, buy4);
     flip4 = f01(new4 != st.pos4);
@@ -232,21 +306,27 @@ __device__ __forceinline__ void strategies_step(StratState& st, const float* K,
     new5 = asel(f01(st.pos5 == 1.0f), 1.0f - sell5, buy5);
     flip5 = f01(new5 != st.pos5);
   }
-  const float sma_cost = (K[K_SP0] + K[K_SPD] * reg) / 10000.0f
-                         + K[K_RCPD_LEV] * fabsf(r_tqqq);
-  {
-    const float newp[2] = {new4, new5}, flip[2] = {flip4, flip5};
+  const float sma_cost = (K[K_SP0] + K[K_SPD] * c.reg) / 10000.0f
+                         + K[K_RCPD_LEV] * fabsf(c.r_tqqq);
+  const float newp[2] = {new4, new5}, flip[2] = {flip4, flip5};
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      float ret_s = asel(newp[i], r_tqqq, cashr);
-      if (apply_costs) ret_s = ret_s - flip[i] * sma_cost;
-      rets[3 + i] = ret_s;
-      traded[3 + i] = flip[i];
-      pa_new[3 + i] = st.pa[3 + i];
-    }
+  for (int i = 0; i < 2; ++i) {
+    float ret_s = asel(newp[i], c.r_tqqq, c.cashr);
+    if (c.costs) ret_s = ret_s - flip[i] * sma_cost;
+    settle<FIRST>(st, 3 + i, ret_s, flip[i], st.pa[3 + i], c.cft);
   }
+  if (!FIRST) {
+    st.pos4 = new4;
+    st.pos5 = new5;
+  }
+}
 
-  // ---- S6 60/40 TQQQ/TMF with leverage-drift turnover ----
+// ---- S6 60/40 TQQQ/TMF with leverage-drift turnover ----
+template <bool FIRST>
+__device__ __forceinline__ void s6(StratState& st, const DayCtx& c) {
+  const float* K = c.K;
+  const int t = c.t;
+  const float r_tqqq = c.r_tqqq, r_tmf = c.r_tmf;
   const float L6A = K[K_L6A], L6B = K[K_L6B];
   const float pg0 = st.s6p0 * (1.0f + r_tqqq);
   const float pg1 = st.s6p1 * (1.0f + r_tmf);
@@ -263,265 +343,321 @@ __device__ __forceinline__ void strategies_step(StratState& st, const float* K,
   const float lev_turn = fabsf(emb0 - L6A) / L6A * cw0
                          + fabsf(emb1 - L6B) / L6B * cw1;
   const float tot_turn = w_turn + lev_turn;
-  const float do_cost = apply_costs ? rebf * f01(tot_turn > 0.01f) : 0.0f;
+  const float do_cost = c.costs ? rebf * f01(tot_turn > 0.01f) : 0.0f;
   const float total_after = asel(do_cost, total6 * (1.0f - tot_turn * K[K_RCPD]),
                                  total6);
-  float s6p0n, s6p1n, s6e0n, s6e1n, equity6;
+  float s6p0n, s6p1n, s6e0n, s6e1n, equity6, traded;
   if (FIRST) {
     s6p0n = st.s6p0; s6p1n = st.s6p1; s6e0n = st.s6e0; s6e1n = st.s6e1;
     equity6 = st.eq[5];
-    traded[5] = 0.0f;
+    traded = 0.0f;
   } else {
     s6p0n = asel(rebf, total_after * W6A, pg0);
     s6p1n = asel(rebf, total_after * W6B, pg1);
     s6e0n = asel(rebf, L6A, emb0);
     s6e1n = asel(rebf, L6B, emb1);
     equity6 = total_after;
-    traded[5] = rebf;
+    traded = rebf;
   }
-  rets[5] = 0.0f;
-  pa_new[5] = st.pa[5];
-
-  auto vol_family = [&](int i, float alloc, bool include_cash, float& ret,
-                        float& trm) {
-    const float turnover = fabsf(alloc - st.pa[i]);
-    trm = f01(turnover > TURNOVER_EPS);
-    ret = include_cash ? alloc * r_tqqq + (1.0f - alloc) * cashr
-                       : alloc * r_tqqq;
-    if (apply_costs) ret = ret - trm * turnover * SPREAD;
-  };
-
-  // ---- S7 vol targeting 20% (no cash on the idle fraction) ----
-  {
-    float m7;
-    const float v7 = guard(cur[G_STD20_MP20], 0.01f, 1.0f, &m7);
-    const float pos7 = asel(m7, jclip(0.20f / v7, 0.2f, 2.0f), 1.0f);
-    vol_family(6, pos7, false, rets[6], traded[6]);
-    pa_new[6] = pos7;
-  }
-
-  // ---- S8 composite regime (TQQQ / SPY / cash; no costs) ----
-  float target8;
-  if (FIRST) {
-    target8 = st.pos8;
-    rets[7] = 0.0f;
-    traded[7] = 0.0f;
-  } else {
-    const float rsi8 = prev[G_RSI14];
-    const float sc = f01(pp > prev[G_SMA200]) + f01((rsi8 > 40.0f) && (rsi8 < 80.0f))
-                     + f01(vix_prev < 25.0f);
-    target8 = asel(f01(sc == 3.0f), 2.0f, asel(f01(sc == 2.0f), 1.0f, 0.0f));
-    rets[7] = asel(f01(target8 == 2.0f), r_tqqq,
-                   asel(f01(target8 == 1.0f), r_spy, cashr));
-    traded[7] = f01(target8 != st.pos8);
-  }
-  pa_new[7] = st.pa[7];
-
-  // ---- S9 adaptive vol target (skips NaN days entirely) ----
-  {
-    const float v9r = prev[G_STD20_MP20], sma9 = prev[G_SMA200];
-    const float ok9 = f01(v9r >= 0.001f) * f01(!isnan(sma9));
-    const float target_v9 = asel(f01(pp > sma9), 0.35f, 0.12f);
-    const float v9 = bsel(ok9, v9r, 1.0f);
-    const float alloc9 = asel(ok9, jclip(target_v9 / v9, 0.0f, 1.0f), st.pa[8]);
-    float ret9, tr9;
-    vol_family(8, alloc9, true, ret9, tr9);
-    rets[8] = ret9 * ok9;
-    traded[8] = tr9 * ok9;
-    pa_new[8] = alloc9;
-  }
-
-  // ---- S10 Sortino (downside vol target) ----
-  {
-    float m10;
-    const float dv10 = guard(prev[G_DSTD20_MP20], 0.001f, 1.0f, &m10);
-    const float alloc10 = asel(m10, jclip(0.15f / dv10, 0.0f, 1.5f), 1.0f);
-    vol_family(9, alloc10, true, rets[9], traded[9]);
-    pa_new[9] = alloc10;
-  }
-
-  // ---- S11 hyper-convex ----
-  {
-    const float v11 = guard(prev[G_STD20], 0.001f, 0.5f);
-    float alloc11 = 0.25f / v11;
-    alloc11 = asel(f01(pp > prev[G_SMA200_MP1]), powf(alloc11, 1.2f), alloc11);
-    alloc11 = jclip(alloc11, 0.0f, 1.0f);
-    vol_family(10, alloc11, true, rets[10], traded[10]);
-    pa_new[10] = alloc11;
-  }
-
-  // ---- S12 vol velocity (max of fast/slow vols) ----
-  {
-    const float v12 = guard(jmax(prev[G_STD20], prev[G_STD5]), 0.001f, 0.5f);
-    const float alloc12 = jclip(0.22f / v12, 0.0f, 1.0f);
-    vol_family(11, alloc12, true, rets[11], traded[11]);
-    pa_new[11] = alloc12;
-  }
-
-  // ---- S13 vol-of-vol momentum ----
-  {
-    const float v13 = guard(prev[G_STD20], 0.001f, 0.5f);
-    const float vm13 = prev[G_VOLMOM5];
-    float alloc13 = 0.25f / v13;
-    alloc13 = asel(f01(vm13 < -0.10f), alloc13 * 1.2f, alloc13);
-    alloc13 = asel(f01(vm13 > 0.10f), alloc13 * 0.7f, alloc13);
-    alloc13 = jclip(alloc13, 0.0f, 1.0f);
-    vol_family(12, alloc13, true, rets[12], traded[12]);
-    pa_new[12] = alloc13;
-  }
-
-  // ---- S14 skewness-adjusted convex ----
-  {
-    const float v14 = guard(prev[G_STD20], 0.001f, 0.5f);
-    const float s14 = prev[G_SKEW60];
-    float alloc14 = 0.25f / v14;
-    alloc14 = asel(f01(s14 > 0.0f), powf(alloc14, 1.3f), alloc14);
-    alloc14 = asel(f01(s14 < -0.5f), alloc14 * 0.5f, alloc14);
-    alloc14 = jclip(alloc14, 0.0f, 1.0f);
-    vol_family(13, alloc14, true, rets[13], traded[13]);
-    pa_new[13] = alloc14;
-  }
-
-  // ---- S15 meta-ensemble ----
-  {
-    const float dv15 = guard(prev[G_DSTD20], 0.001f, 0.25f);
-    float alloc15 = 0.28f / dv15;
-    alloc15 = asel(f01(pp > prev[G_SMA200_MP1]), powf(alloc15, 1.2f), alloc15);
-    const float brake15 = f01(prev[G_STD5] > 1.5f * prev[G_STD20]);
-    alloc15 = asel(brake15, alloc15 * 0.5f, alloc15);
-    alloc15 = jclip(alloc15, 0.0f, 1.0f);
-    vol_family(14, alloc15, true, rets[14], traded[14]);
-    pa_new[14] = alloc15;
-  }
-
-  // ---- S16 crisis alpha (regime asymmetric) ----
-  {
-    const float vr16 = prev[G_STD5] / prev[G_STD60];
-    const float crisis16 = jmin(f01(vix > 25.0f) + f01(vr16 > 1.5f), 1.0f);
-    const float target16 = asel(crisis16, 0.08f, 0.30f);
-    float m16;
-    const float rv16 = guard(prev[G_STD5], 0.001f, 1.0f, &m16);
-    const float alloc16 = asel(m16, jclip(target16 / rv16, 0.0f, 1.2f), 0.5f);
-    vol_family(15, alloc16, true, rets[15], traded[15]);
-    pa_new[15] = alloc16;
-  }
-
-  // ---- S17 tail-risk optimizer (skew-aware Kelly) ----
-  {
-    const float vol17 = guard(prev[G_STD20], 0.001f, 0.25f);
-    const float dvol17 = bsel(f01(prev[G_DSTD20] >= 0.001f), prev[G_DSTD20],
-                              vol17 * 0.6f);
-    const float skew17 = bsel(f01(!isnan(prev[G_SKEW60])), prev[G_SKEW60], 0.0f);
-    const float mean17 = bsel(f01(!isnan(prev[G_MEAN60])), prev[G_MEAN60], 0.08f);
-    const float sneg5 = f01(skew17 < -0.5f), sneg0 = f01(skew17 < 0.0f);
-    const float spos5 = f01(skew17 > 0.5f);
-    const float eff17 = asel(sneg5, dvol17 * 1.5f,
-                             asel(sneg0, dvol17 * 1.2f,
-                                  asel(spos5, vol17 * 0.9f, vol17)));
-    const float pen17 = asel(sneg5, 0.6f,
-                             asel(sneg0, 0.8f, asel(spos5, 1.2f, 1.0f)));
-    const float kelly17 = asel(f01(eff17 > 0.01f),
-                               jclip((mean17 - 0.03f) / (eff17 * eff17) * 0.7f,
-                                     0.2f, 2.0f), 1.0f);
-    const float alloc17 = jclip((0.30f / eff17) * pen17 * (kelly17 / 1.5f),
-                                0.0f, 1.5f);
-    vol_family(16, alloc17, true, rets[16], traded[16]);
-    pa_new[16] = alloc17;
-  }
-
-  // ---- S18 momentum-vol convergence ----
-  {
-    const float mom18 = bsel(f01(!isnan(prev[G_SUM126])), prev[G_SUM126], 0.0f);
-    const float vf18 = guard(prev[G_STD10], 0.001f, 0.30f);
-    const float vs18 = guard(prev[G_STD60], 0.001f, 0.25f);
-    const float mm18 = asel(f01(mom18 > 0.05f), 1.3f,
-                            asel(f01(mom18 > 0.0f), 1.0f, 0.5f));
-    const float vr18 = vf18 / vs18;
-    const float out_band = jmin(f01(vr18 < 0.8f) + f01(vr18 > 1.3f), 1.0f);
-    const float vm18 = asel(f01(vr18 < 0.8f), 1.2f,
-                            asel(f01(vr18 > 1.3f), 0.6f, 1.0f));
-    const float eff18 = asel(out_band, vf18, vs18);
-    const float alloc18 = jclip(0.28f * mm18 * vm18 / eff18, 0.0f, 1.5f);
-    vol_family(17, alloc18, true, rets[17], traded[17]);
-    pa_new[17] = alloc18;
-  }
-
-  // ---- S19 conviction compounder (5% rebalance threshold) ----
-  {
-    const float mom19 = bsel(f01(!isnan(prev[G_SUM126])), prev[G_SUM126], 0.0f);
-    const float dv19 = guard(prev[G_DSTD20], 0.001f, 0.20f);
-    const float vf19 = guard(prev[G_STD5], 0.001f, 0.30f);
-    const float vs19 = guard(prev[G_STD60], 0.001f, 0.25f);
-    const float mom_score = asel(f01(mom19 > 0.15f), 1.0f,
-                                 asel(f01(mom19 > 0.05f), 0.7f,
-                                      asel(f01(mom19 > 0.0f), 0.4f, 0.0f)));
-    const float trend_score = f01(pp > prev[G_SMA100_MP1]) * 0.5f;
-    const float vr19 = vf19 / vs19;
-    const float vol_score = asel(f01(vr19 < 0.9f), 0.5f,
-                                 asel(f01(vr19 < 1.2f), 0.3f, 0.0f));
-    const float conviction = mom_score + trend_score + vol_score;
-    const float cand19 = jclip((0.32f / dv19) * (0.3f + conviction * 0.55f),
-                               0.0f, 1.5f);
-    const float turn19 = fabsf(cand19 - st.pa[18]);
-    const float rebal19 = f01(turn19 > 0.05f);
-    const float alloc19 = asel(rebal19, cand19, st.pa[18]);
-    float ret19 = alloc19 * r_tqqq + (1.0f - alloc19) * cashr;
-    if (apply_costs) ret19 = ret19 - rebal19 * turn19 * SPREAD;
-    rets[18] = ret19;
-    traded[18] = rebal19;
-    pa_new[18] = alloc19;
-  }
-
-  // ---- combine: equity, cashflow overlay + ruin floor, drawdown ----
-  float eq_new[NS];
-#pragma unroll
-  for (int i = 0; i < NS; ++i)
-    eq_new[i] = (FIRST && i >= 3) ? st.eq[i] : st.eq[i] * (1.0f + rets[i]);
-  eq_new[5] = equity6;
-  const float pre5 = eq_new[5];
-#pragma unroll
-  for (int i = 0; i < NS; ++i) eq_new[i] = ruin_floor(eq_new[i] + cft);
-  const float s6_scale = eq_new[5] / jmax(pre5, 1e-30f);
+  // The sleeves follow the cashflow overlay and the ruin floor.
+  const float eq_new = ruin_floor(equity6 + c.cft);
+  const float s6_scale = eq_new / jmax(equity6, 1e-30f);
   s6p0n = s6p0n * s6_scale;
   s6p1n = s6p1n * s6_scale;
-#pragma unroll
-  for (int i = 0; i < NS; ++i) {
-    if (FIRST) {
-      st.rm[i] = eq_new[i];
-      st.eq[i] = eq_new[i];
-      continue;
-    }
-    st.tr[i] = st.tr[i] + (i == 5 ? traded[i] * 2.0f : traded[i]);
-    const float rm_new = jmax(st.rm[i], eq_new[i]);
+  if (FIRST) {
+    st.rm[5] = eq_new;
+    st.eq[5] = eq_new;
+  } else {
+    st.tr[5] = st.tr[5] + traded * 2.0f;
+    const float rm_new = jmax(st.rm[5], eq_new);
     const float safe_rm = asel(f01(rm_new > 0.0f), jmax(rm_new, 1e-30f), 1.0f);
-    const float ddv = (eq_new[i] - rm_new) / safe_rm;
-    st.dd[i] = jmax(st.dd[i], -ddv);
-    st.rm[i] = rm_new;
-    st.eq[i] = eq_new[i];
-    st.pa[i] = pa_new[i];
-  }
-  if (!FIRST) {
-    st.pos4 = new4;
-    st.pos5 = new5;
-    st.pos8 = target8;
+    const float ddv = (eq_new - rm_new) / safe_rm;
+    st.dd[5] = jmax(st.dd[5], -ddv);
+    st.rm[5] = rm_new;
+    st.eq[5] = eq_new;
   }
   st.s6p0 = s6p0n; st.s6p1 = s6p1n; st.s6e0 = s6e0n; st.s6e1 = s6e1n;
+}
 
-  // ---- roll the shift(1) values ----
+// ---- S7 vol targeting 20% (no cash on the idle fraction) ----
+template <bool FIRST>
+__device__ __forceinline__ void s7(StratState& st, const DayCtx& c) {
+  float m7, ret, tr;
+  const float v7 = guard(c.cur[G_STD20_MP20], 0.01f, 1.0f, &m7);
+  const float pos7 = asel(m7, jclip(0.20f / v7, 0.2f, 2.0f), 1.0f);
+  vol_family(st, c, 6, pos7, false, ret, tr);
+  settle<FIRST>(st, 6, ret, tr, pos7, c.cft);
+}
+
+// ---- S8 composite regime (TQQQ / SPY / cash; no costs) ----
+template <bool FIRST>
+__device__ __forceinline__ void s8(StratState& st, const DayCtx& c) {
+  float target8, ret, tr;
+  if (FIRST) {
+    target8 = st.pos8;
+    ret = 0.0f;
+    tr = 0.0f;
+  } else {
+    const float* prev = c.prev;
+    const float rsi8 = prev[G_RSI14];
+    const float sc = f01(c.pp > prev[G_SMA200])
+                     + f01((rsi8 > 40.0f) && (rsi8 < 80.0f))
+                     + f01(c.vix_prev < 25.0f);
+    target8 = asel(f01(sc == 3.0f), 2.0f, asel(f01(sc == 2.0f), 1.0f, 0.0f));
+    ret = asel(f01(target8 == 2.0f), c.r_tqqq,
+               asel(f01(target8 == 1.0f), c.r_spy, c.cashr));
+    tr = f01(target8 != st.pos8);
+  }
+  settle<FIRST>(st, 7, ret, tr, st.pa[7], c.cft);
+  if (!FIRST) st.pos8 = target8;
+}
+
+// ---- S9 adaptive vol target (skips NaN days entirely) ----
+template <bool FIRST>
+__device__ __forceinline__ void s9(StratState& st, const DayCtx& c) {
+  const float v9r = c.prev[G_STD20_MP20], sma9 = c.prev[G_SMA200];
+  const float ok9 = f01(v9r >= 0.001f) * f01(!isnan(sma9));
+  const float target_v9 = asel(f01(c.pp > sma9), 0.35f, 0.12f);
+  const float v9 = bsel(ok9, v9r, 1.0f);
+  const float alloc9 = asel(ok9, jclip(target_v9 / v9, 0.0f, 1.0f), st.pa[8]);
+  float ret9, tr9;
+  vol_family(st, c, 8, alloc9, true, ret9, tr9);
+  settle<FIRST>(st, 8, ret9 * ok9, tr9 * ok9, alloc9, c.cft);
+}
+
+// ---- S10 Sortino (downside vol target) ----
+template <bool FIRST>
+__device__ __forceinline__ void s10(StratState& st, const DayCtx& c) {
+  float m10, ret, tr;
+  const float dv10 = guard(c.prev[G_DSTD20_MP20], 0.001f, 1.0f, &m10);
+  const float alloc10 = asel(m10, jclip(0.15f / dv10, 0.0f, 1.5f), 1.0f);
+  vol_family(st, c, 9, alloc10, true, ret, tr);
+  settle<FIRST>(st, 9, ret, tr, alloc10, c.cft);
+}
+
+// ---- S11 hyper-convex ----
+template <bool FIRST>
+__device__ __forceinline__ void s11(StratState& st, const DayCtx& c) {
+  float ret, tr;
+  const float v11 = guard(c.prev[G_STD20], 0.001f, 0.5f);
+  float alloc11 = 0.25f / v11;
+  alloc11 = asel(f01(c.pp > c.prev[G_SMA200_MP1]), powf(alloc11, 1.2f),
+                 alloc11);
+  alloc11 = jclip(alloc11, 0.0f, 1.0f);
+  vol_family(st, c, 10, alloc11, true, ret, tr);
+  settle<FIRST>(st, 10, ret, tr, alloc11, c.cft);
+}
+
+// ---- S12 vol velocity (max of fast/slow vols) ----
+template <bool FIRST>
+__device__ __forceinline__ void s12(StratState& st, const DayCtx& c) {
+  float ret, tr;
+  const float v12 = guard(jmax(c.prev[G_STD20], c.prev[G_STD5]), 0.001f, 0.5f);
+  const float alloc12 = jclip(0.22f / v12, 0.0f, 1.0f);
+  vol_family(st, c, 11, alloc12, true, ret, tr);
+  settle<FIRST>(st, 11, ret, tr, alloc12, c.cft);
+}
+
+// ---- S13 vol-of-vol momentum ----
+template <bool FIRST>
+__device__ __forceinline__ void s13(StratState& st, const DayCtx& c) {
+  float ret, tr;
+  const float v13 = guard(c.prev[G_STD20], 0.001f, 0.5f);
+  const float vm13 = c.prev[G_VOLMOM5];
+  float alloc13 = 0.25f / v13;
+  alloc13 = asel(f01(vm13 < -0.10f), alloc13 * 1.2f, alloc13);
+  alloc13 = asel(f01(vm13 > 0.10f), alloc13 * 0.7f, alloc13);
+  alloc13 = jclip(alloc13, 0.0f, 1.0f);
+  vol_family(st, c, 12, alloc13, true, ret, tr);
+  settle<FIRST>(st, 12, ret, tr, alloc13, c.cft);
+}
+
+// ---- S14 skewness-adjusted convex ----
+template <bool FIRST>
+__device__ __forceinline__ void s14(StratState& st, const DayCtx& c) {
+  float ret, tr;
+  const float v14 = guard(c.prev[G_STD20], 0.001f, 0.5f);
+  const float sk = c.prev[G_SKEW60];
+  float alloc14 = 0.25f / v14;
+  alloc14 = asel(f01(sk > 0.0f), powf(alloc14, 1.3f), alloc14);
+  alloc14 = asel(f01(sk < -0.5f), alloc14 * 0.5f, alloc14);
+  alloc14 = jclip(alloc14, 0.0f, 1.0f);
+  vol_family(st, c, 13, alloc14, true, ret, tr);
+  settle<FIRST>(st, 13, ret, tr, alloc14, c.cft);
+}
+
+// ---- S15 meta-ensemble ----
+template <bool FIRST>
+__device__ __forceinline__ void s15(StratState& st, const DayCtx& c) {
+  float ret, tr;
+  const float* prev = c.prev;
+  const float dv15 = guard(prev[G_DSTD20], 0.001f, 0.25f);
+  float alloc15 = 0.28f / dv15;
+  alloc15 = asel(f01(c.pp > prev[G_SMA200_MP1]), powf(alloc15, 1.2f),
+                 alloc15);
+  const float brake15 = f01(prev[G_STD5] > 1.5f * prev[G_STD20]);
+  alloc15 = asel(brake15, alloc15 * 0.5f, alloc15);
+  alloc15 = jclip(alloc15, 0.0f, 1.0f);
+  vol_family(st, c, 14, alloc15, true, ret, tr);
+  settle<FIRST>(st, 14, ret, tr, alloc15, c.cft);
+}
+
+// ---- S16 crisis alpha (regime asymmetric) ----
+template <bool FIRST>
+__device__ __forceinline__ void s16(StratState& st, const DayCtx& c) {
+  float ret, tr;
+  const float vr16 = c.prev[G_STD5] / c.prev[G_STD60];
+  const float crisis16 = jmin(f01(c.vix > 25.0f) + f01(vr16 > 1.5f), 1.0f);
+  const float target16 = asel(crisis16, 0.08f, 0.30f);
+  float m16;
+  const float rv16 = guard(c.prev[G_STD5], 0.001f, 1.0f, &m16);
+  const float alloc16 = asel(m16, jclip(target16 / rv16, 0.0f, 1.2f), 0.5f);
+  vol_family(st, c, 15, alloc16, true, ret, tr);
+  settle<FIRST>(st, 15, ret, tr, alloc16, c.cft);
+}
+
+// ---- S17 tail-risk optimizer (skew-aware Kelly) ----
+template <bool FIRST>
+__device__ __forceinline__ void s17(StratState& st, const DayCtx& c) {
+  float ret, tr;
+  const float* prev = c.prev;
+  const float vol17 = guard(prev[G_STD20], 0.001f, 0.25f);
+  const float dvol17 = bsel(f01(prev[G_DSTD20] >= 0.001f), prev[G_DSTD20],
+                            vol17 * 0.6f);
+  const float skew17 = bsel(f01(!isnan(prev[G_SKEW60])), prev[G_SKEW60], 0.0f);
+  const float mean17 = bsel(f01(!isnan(prev[G_MEAN60])), prev[G_MEAN60], 0.08f);
+  const float sneg5 = f01(skew17 < -0.5f), sneg0 = f01(skew17 < 0.0f);
+  const float spos5 = f01(skew17 > 0.5f);
+  const float eff17 = asel(sneg5, dvol17 * 1.5f,
+                           asel(sneg0, dvol17 * 1.2f,
+                                asel(spos5, vol17 * 0.9f, vol17)));
+  const float pen17 = asel(sneg5, 0.6f,
+                           asel(sneg0, 0.8f, asel(spos5, 1.2f, 1.0f)));
+  const float kelly17 = asel(f01(eff17 > 0.01f),
+                             jclip((mean17 - 0.03f) / (eff17 * eff17) * 0.7f,
+                                   0.2f, 2.0f), 1.0f);
+  const float alloc17 = jclip((0.30f / eff17) * pen17 * (kelly17 / 1.5f),
+                              0.0f, 1.5f);
+  vol_family(st, c, 16, alloc17, true, ret, tr);
+  settle<FIRST>(st, 16, ret, tr, alloc17, c.cft);
+}
+
+// ---- S18 momentum-vol convergence ----
+template <bool FIRST>
+__device__ __forceinline__ void s18(StratState& st, const DayCtx& c) {
+  float ret, tr;
+  const float* prev = c.prev;
+  const float mom18 = bsel(f01(!isnan(prev[G_SUM126])), prev[G_SUM126], 0.0f);
+  const float vf18 = guard(prev[G_STD10], 0.001f, 0.30f);
+  const float vs18 = guard(prev[G_STD60], 0.001f, 0.25f);
+  const float mm18 = asel(f01(mom18 > 0.05f), 1.3f,
+                          asel(f01(mom18 > 0.0f), 1.0f, 0.5f));
+  const float vr18 = vf18 / vs18;
+  const float out_band = jmin(f01(vr18 < 0.8f) + f01(vr18 > 1.3f), 1.0f);
+  const float vm18 = asel(f01(vr18 < 0.8f), 1.2f,
+                          asel(f01(vr18 > 1.3f), 0.6f, 1.0f));
+  const float eff18 = asel(out_band, vf18, vs18);
+  const float alloc18 = jclip(0.28f * mm18 * vm18 / eff18, 0.0f, 1.5f);
+  vol_family(st, c, 17, alloc18, true, ret, tr);
+  settle<FIRST>(st, 17, ret, tr, alloc18, c.cft);
+}
+
+// ---- S19 conviction compounder (5% rebalance threshold) ----
+template <bool FIRST>
+__device__ __forceinline__ void s19(StratState& st, const DayCtx& c) {
+  const float* prev = c.prev;
+  const float mom19 = bsel(f01(!isnan(prev[G_SUM126])), prev[G_SUM126], 0.0f);
+  const float dv19 = guard(prev[G_DSTD20], 0.001f, 0.20f);
+  const float vf19 = guard(prev[G_STD5], 0.001f, 0.30f);
+  const float vs19 = guard(prev[G_STD60], 0.001f, 0.25f);
+  const float mom_score = asel(f01(mom19 > 0.15f), 1.0f,
+                               asel(f01(mom19 > 0.05f), 0.7f,
+                                    asel(f01(mom19 > 0.0f), 0.4f, 0.0f)));
+  const float trend_score = f01(c.pp > prev[G_SMA100_MP1]) * 0.5f;
+  const float vr19 = vf19 / vs19;
+  const float vol_score = asel(f01(vr19 < 0.9f), 0.5f,
+                               asel(f01(vr19 < 1.2f), 0.3f, 0.0f));
+  const float conviction = mom_score + trend_score + vol_score;
+  const float cand19 = jclip((0.32f / dv19) * (0.3f + conviction * 0.55f),
+                             0.0f, 1.5f);
+  const float turn19 = fabsf(cand19 - st.pa[18]);
+  const float rebal19 = f01(turn19 > 0.05f);
+  const float alloc19 = asel(rebal19, cand19, st.pa[18]);
+  float ret19 = alloc19 * c.r_tqqq + (1.0f - alloc19) * c.cashr;
+  if (c.costs) ret19 = ret19 - rebal19 * turn19 * SPREAD;
+  settle<FIRST>(st, 18, ret19, rebal19, alloc19, c.cft);
+}
+
+// One day of group G's strategies (group_of), each settled in turn.
+template <int G, bool FIRST>
+__device__ __forceinline__ void strategies_group(StratState& st,
+                                                 const DayCtx& c) {
+  if constexpr (G == 0) {
+    s_bench<FIRST>(st, c); s_sma<FIRST>(st, c); s6<FIRST>(st, c);
+  } else if constexpr (G == 1) {
+    s7<FIRST>(st, c); s8<FIRST>(st, c); s9<FIRST>(st, c); s10<FIRST>(st, c);
+    s11<FIRST>(st, c);
+  } else if constexpr (G == 2) {
+    s12<FIRST>(st, c); s13<FIRST>(st, c); s14<FIRST>(st, c);
+    s16<FIRST>(st, c);
+  } else {
+    s15<FIRST>(st, c); s17<FIRST>(st, c); s18<FIRST>(st, c);
+    s19<FIRST>(st, c);
+  }
+}
+
+__device__ __forceinline__ DayCtx day_ctx(const StratState& st,
+                                          const float* K, bool costs, int t,
+                                          float r_tqqq, float r_spy,
+                                          float r_sso, float r_tmf,
+                                          float cashr, float reg, float vix,
+                                          const float* cur, float cft) {
+  return DayCtx{K, costs, t, r_tqqq, r_spy, r_sso, r_tmf, cashr, reg, vix,
+                cft, cur, st.psig, st.psig[G_PRICE], st.pvix};
+}
+
+// Roll the shift(1) values: yesterday's VIX and signals become today's.
+__device__ __forceinline__ void roll(StratState& st, float vix,
+                                     const float* cur) {
   st.pvix = vix;
 #pragma unroll
   for (int i = 0; i < NSIG; ++i) st.psig[i] = cur[i];
 }
 
-// The 57 summary rows [3 * NS, B]: final equity, trade counts, max drawdown.
+// One day of the 19 strategies on one thread (K4): the four groups in
+// order, then the roll. cur: today's signals (G_* order); cft: the day's
+// cashflow.
+template <bool FIRST>
+__device__ __forceinline__ void strategies_step(StratState& st, const float* K,
+                                               bool apply_costs, int t,
+                                               float r_tqqq, float r_spy,
+                                               float r_sso, float r_tmf,
+                                               float cashr, float reg,
+                                               float vix, const float* cur,
+                                               float cft) {
+  const DayCtx c = day_ctx(st, K, apply_costs, t, r_tqqq, r_spy, r_sso,
+                           r_tmf, cashr, reg, vix, cur, cft);
+  strategies_group<0, FIRST>(st, c);
+  strategies_group<1, FIRST>(st, c);
+  strategies_group<2, FIRST>(st, c);
+  strategies_group<3, FIRST>(st, c);
+  roll(st, vix, cur);
+}
+
+// Strategy i's three summary rows of [3 * NS, B]: final equity, trade
+// count, max drawdown.
+__device__ __forceinline__ void store_strategy(const StratState& st, int i,
+                                               float* out, int b, int B) {
+  out[(size_t)i * B + b] = st.eq[i];
+  out[(size_t)(NS + i) * B + b] = st.tr[i];
+  out[(size_t)(2 * NS + i) * B + b] = st.dd[i];
+}
+
+// The 57 summary rows of all strategies.
 __device__ __forceinline__ void store_summary(const StratState& st,
                                               float* out, int b, int B) {
 #pragma unroll
-  for (int i = 0; i < NS; ++i) {
-    out[(size_t)i * B + b] = st.eq[i];
-    out[(size_t)(NS + i) * B + b] = st.tr[i];
-    out[(size_t)(2 * NS + i) * B + b] = st.dd[i];
-  }
+  for (int i = 0; i < NS; ++i) store_strategy(st, i, out, b, B);
 }
 
 }  // namespace strategies_day

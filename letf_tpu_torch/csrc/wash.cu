@@ -82,3 +82,7 @@ extern "C" int letf_wash(const float* loss, const float* sell,
   }
   return (int)cudaGetLastError();
 }
+
+extern "C" int letf_info_wash(int* out) {
+  return letf_fill_info((const void*)wash_kernel, 32, 0, out);
+}

@@ -49,7 +49,14 @@ SIGNATURES = {
     "letf_wash": [_P, _P, _P, _I, _I, _P, _P, _P, _P],
     "letf_strategies": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P],
     "letf_gbm": [_U, _U, _I, _I, _F, _F, _F, _F, _P, _P, _P],
+    "letf_kernel_info": [_I, _P],
 }
+# The kernels letf_kernel_info reports on, in its index order (csrc/info.cu),
+# and the fields of each report (common.cuh::letf_fill_info).
+KERNEL_INFO = ("joint", "window", "compose_strategies", "strategies",
+               "strategies_fused", "compose", "gbm", "merge", "wash")
+INFO_FIELDS = ("registers", "static_smem", "dynamic_smem", "local_bytes",
+               "threads", "blocks_per_sm", "warps_per_sm")
 
 _lib = None
 
@@ -123,6 +130,20 @@ def library() -> ctypes.CDLL:
         lib.letf_error_string.restype = ctypes.c_char_p
         _lib = lib
     return _lib
+
+
+def kernel_info() -> dict:
+    """{kernel: {field: int}} for every kernel of the library at its launch
+    shape (INFO_FIELDS): registers and local (spill) bytes a thread, shared
+    memory, and the blocks and warps the card keeps resident on an SM."""
+    lib = library()
+    out = {}
+    for i, name in enumerate(KERNEL_INFO):
+        buf = (ctypes.c_int * len(INFO_FIELDS))()
+        check(lib.letf_kernel_info(i, ctypes.cast(buf, ctypes.c_void_p)),
+              f"letf_kernel_info({name})")
+        out[name] = dict(zip(INFO_FIELDS, buf))
+    return out
 
 
 def check(rc: int, name: str) -> None:

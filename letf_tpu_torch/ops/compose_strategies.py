@@ -726,7 +726,9 @@ def compose_strategies(sp, ap, ids, seed_words, spy, qqq, tlt, vix, irx,
                       ids=(ids, torch.int32),
                       **{k: (v, torch.float32) for k, v in chans.items()})
     kc = kernel_consts(dev)
-    rings = torch.empty((RING_ROWS, B), dtype=torch.float32, device=dev)
+    # One ring column per lane of the kernel's 32-trial blocks.
+    rings = torch.empty((RING_ROWS, -(-B // 32) * 32), dtype=torch.float32,
+                        device=dev)
     out = torch.empty((OUT_ROWS, B), dtype=torch.float32, device=dev)
     lib = _build.library()
     rc = lib.letf_compose_strategies(

@@ -6,8 +6,9 @@ Port of ``letf_tpu/ops/pallas_window.py::_window_kernel_4d`` (K2, entry
 path's): ``out[s, b] = x[s + off[b], b] (+ bias[b])``, bitwise a gather,
 NaN payloads included. The TPU kernels' shift-select tree and lookahead
 tails worked around the lack of a fast gather; on the GPU both are one
-direct offset load (``csrc/window.cu``), up to six channels per launch,
-behind the one wrapper ``window_offsets``.
+kernel (``csrc/window.cu``: each block streams a 32-trial strip's rows
+through a shared-memory ring, so reads and writes are whole lines), up to
+six channels per launch, behind the one wrapper ``window_offsets``.
 
 Layout ``[T, B]`` in, ``[S, B]`` out. Offsets must lie in [0, T - S].
 """

@@ -67,6 +67,83 @@ def test_window_kernel_bitwise(dev):
         assert torch.equal(a.view(torch.int32), b.view(torch.int32))
 
 
+@pytest.mark.parametrize("case", ["ragged", "equal", "wide"])
+def test_window_kernel_bitwise_edge_cases(dev, case):
+    """K2 bitwise against its plain version where the strip design has
+    edges: a B that is neither a multiple of 32 nor of 4 (a masked last
+    strip, 4-byte copies), every offset equal (a span of one row), and
+    spans wider than one 32-trial ring holds (narrower sub-strips)."""
+    Bc, Tc, Sc = {"ragged": (650, T, S), "equal": (B, T, S),
+                  "wide": (512, 2520 + 3000, 2520)}[case]
+    g = torch.Generator(device=dev).manual_seed(2)
+    xs = [torch.randn((Tc, Bc), generator=g, device=dev) for _ in range(3)]
+    xs[1][4, Bc - 1] = float("nan")
+    xs[2][5, 0] = -0.0
+    offs = (torch.full((Bc,), (Tc - Sc) // 3, dtype=torch.int32, device=dev)
+            if case == "equal" else
+            torch.randint(0, Tc - Sc + 1, (Bc,), generator=g, device=dev,
+                          dtype=torch.int32))
+    bias = [torch.randn(Bc, generator=g, device=dev), None, None]
+    n0 = window.LAUNCHES
+    got = window.window_offsets(xs, offs, Sc, biases=bias)
+    assert window.LAUNCHES == n0 + 1
+    for a, b in zip(got, window.window_plain(xs, offs, Sc, biases=bias)):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+@pytest.mark.parametrize("n_trials", [1024, 1000])
+def test_compose_strategies_kernel_matches_plain_one_year(dev, n_trials):
+    """K3 against its plain version at 1,024 trials x 252 days, and at a
+    trial count that leaves the last 32-trial block ragged."""
+    model = default_sim_model()
+    rs = np.random.default_rng(7)
+    Sy = 252
+    spy = 0.0003 + 0.012 * rs.standard_t(5, (Sy, n_trials))
+    vix = np.clip(20.0 - 30.0 * np.cumsum(spy - 0.0003, 0)
+                  + 3.0 * rs.standard_normal((Sy, n_trials)), 9.0, 80.0)
+    regime = np.cumsum(rs.random((Sy, n_trials)) < 0.05, 0) % 2
+    chans = [torch.as_tensor(c, dtype=torch.float32, device=dev)
+             for c in (spy, 1.2 * spy, -0.2 * spy, vix,
+                       np.full((Sy, n_trials), 3.0), regime)]
+    args = (tparams.pack_stress_params(model).to(dev),
+            tparams.pack_asset_params(model).to(dev),
+            (torch.arange(n_trials, device=dev) // 2).to(torch.int32),
+            [9, 11], *chans)
+    got = [g.cpu().numpy() for g in k3.compose_strategies(*args)]
+    ref = [r.cpu().numpy() for r in k3.compose_strategies_plain(*args)]
+    k3.check_parity(dict(zip(k3.OUTPUTS, got)), dict(zip(k3.OUTPUTS, ref)),
+                    exact=("path_finite", "vix_min", "vix_max",
+                           "regime_high_days"))
+
+
+@pytest.mark.parametrize("n_trials", [1024, 1000])
+def test_compose_strategies_kernel_bitwise_k4_fused(dev, n_trials):
+    """K3 (the slab chunk) runs K4's day math split over warps, so on the
+    same trials the slab path's summaries are bitwise those of the general
+    path through K4's fused-signals mode (whose composition is K5's, the
+    same day math as K3's)."""
+    from letf_tpu_torch.ops import rng
+    from letf_tpu_torch.ops import strategies as k4
+    from letf_tpu_torch.ops.path_batched import generate_paths_batched
+    from letf_tpu_torch.ops.slab_chunk import slab_chunk_summaries
+    from letf_tpu_torch.strategies.signals import compute_signals
+
+    mt = tparams.from_numpy(default_sim_model(), dev, torch.float32)
+    rows = torch.arange(n_trials, device=dev)
+    ids, anti, key = rows // 2, rows % 2 == 1, rng.key(6, dev)
+    p = generate_paths_batched(mt, key, ids, anti, sim_days=252,
+                               buffer_days=126)
+    chans = k4.channels_from(p, compute_signals(p))[:k4.N_FUSED]
+    got = k4.strategies_run(chans, fused_signals=True)
+    n0 = k3.LAUNCHES
+    sm = slab_chunk_summaries(mt, key, ids, anti, sim_days=252,
+                              buffer_days=126)
+    assert k3.LAUNCHES == n0 + 1
+    for a, name in zip(got, ("final_wealth", "num_trades", "max_dd")):
+        assert torch.equal(a.view(torch.int32), sm[name].view(torch.int32)), \
+            name
+
+
 @pytest.mark.parametrize("with_cashflows,apply_costs",
                          [(False, True), (True, True), (False, False)])
 def test_compose_strategies_kernel_matches_plain(dev, with_cashflows,
@@ -213,6 +290,18 @@ def test_strategies_kernel_matches_plain(dev, fused, with_cashflows):
     ref = k4.strategies_plain(chans, cashflows=cf, fused_signals=fused)
     names = ("final_wealth", "num_trades", "max_dd")
     k3.check_parity(dict(zip(names, got)), dict(zip(names, ref)))
+
+
+def test_kernel_info_reports_every_kernel(dev):
+    """letf_kernel_info: every kernel of the library fits on an SM at its
+    launch shape, and K3 keeps more than 4 warps resident an SM."""
+    from letf_tpu_torch.ops import _build
+
+    info = _build.kernel_info()
+    assert set(info) == set(_build.KERNEL_INFO)
+    for name, v in info.items():
+        assert v["registers"] > 0 and v["blocks_per_sm"] >= 1, (name, v)
+    assert info["compose_strategies"]["warps_per_sm"] > 4, info
 
 
 def test_gbm_kernel_matches_plain(dev):
