@@ -14,7 +14,8 @@ Phases, each raising on failure:
 3. Kernels: each CUDA kernel against its plain PyTorch version on the card,
    on the same inputs, at the main paths' shapes (B=16,384 trials, 30
    years + 5-year buffer; with --quick a 252-day window and a 126-day
-   buffer): K1 (joint) within rtol 1e-4 / VIX atol 1e-3, K2 (window)
+   buffer): K1 (joint) within rtol 1e-4 / VIX atol 1e-3 and bit for bit
+   the PR 1 kernel (its output digests, stored below), K2 (window)
    bitwise (independent, antithetic-paired and equal offsets, a ragged B
    of 650, a span past one 32-trial ring), K3 (compose + strategies) within
    compose_strategies.check_parity's bounds, K5 (compose) within rtol 1e-5
@@ -24,7 +25,8 @@ Phases, each raising on failure:
    (K4 follows in phase 8, on the main path's channels; with --quick here,
    at 16,384 x 252 days). Each kernel's time beside the plain version's,
    its bound and, where one PyTorch call computes the same function, that
-   call's time; K2 and K3 as min/median/max over 5 and 3 runs.
+   call's time; K1, K2 and K3 as min/median/max over 5, 5 and 3 runs,
+   K1 and K3 also on the chunk's first 4,096 trials (3 runs).
 4. Reports through kernels vs plain versions on the card: 1,024 trials x
    0.5 year pre-tax, and the default sampled report at 1,024 x 1 year.
 5. The general path against the slab path (K1, K2, K3): with the emitting
@@ -81,10 +83,27 @@ PEAK_BYTES = 3.35e12
 PEAK_F32 = 67e12
 # float32 operations per trial-day of each kernel's day body, counted from
 # its source (a transcendental counts as one): the operation side of the
-# bound. The integer counter hashing is not counted.
-OPS_PER_TRIAL_DAY = {"joint": 260, "compose_strategies": 2000,
+# bound. The integer counter hashing is not counted. K1's 419, at the
+# model's 14 Chebyshev coefficients: 115 in the draws (the six uniforms'
+# scale and offset, Box-Muller, the 13-step Clenshaw pass at 4 each, expf,
+# the scale, the signs, IRX) and 304 in the carry chain (GARCH, DCC, the
+# correlation and Cholesky, x, z, VIX), each NaN-propagating max or min
+# counted as 3 (two NaN compares and the max), a clip as 6; the
+# per-regime parameter rows are loads, not operations.
+OPS_PER_TRIAL_DAY = {"joint": 419, "compose_strategies": 2000,
                      "strategies": 1200, "strategies_fused": 1500,
                      "compose": 640, "gbm": 16}
+
+
+# bit_digest of K1's five outputs (x0, x1, x2, VIX, IRX) from the PR 1
+# kernel (one thread per trial), on chain_inputs at seed 2 over the chunk's
+# 16,384 trials: the --quick shape (252 + 126 days) and the full one
+# (7,560 + 1,260). Every later K1 must reproduce them bit for bit.
+JOINT_DIGESTS_PR1 = {
+    "quick": [8022251606426999569, -6531180406265040227, 862387567883774011,
+              -5197426976195207276, 4348479962836073629],
+    "full": [4406066641351886039, -6543449953699000622, 7058428530418077991,
+             -253267574117871014, -7552742787963051914]}
 
 
 def bound(nbytes: float, ops: float):
@@ -214,6 +233,21 @@ def chain_inputs(model_t, B, sim, buf, seed=2):
             [int(v) for v in key.tolist()], sc.start_offset.to(torch.int32))
 
 
+def bit_digest(x: torch.Tensor) -> int:
+    """Position-weighted sum of a float32 tensor's int32 view in int64
+    (wrapping, so the same in any summation order): equal digests mean,
+    short of a collision, bitwise equal tensors."""
+    v = x.reshape(-1).view(torch.int32)
+    acc = torch.zeros((), dtype=torch.int64, device=x.device)
+    step = 1 << 26
+    for s in range(0, v.numel(), step):
+        c = v[s:s + step].to(torch.int64)
+        w = torch.arange(s, s + c.numel(), device=x.device,
+                         dtype=torch.int64) % 1_000_003 + 1
+        acc += (c * w).sum()
+    return int(acc)
+
+
 def joint_args(model_t, regime, ids, signs, seed_words):
     from letf_tpu_torch.models import params as tparams
 
@@ -255,17 +289,29 @@ def phase_kernels(model_t, quick: bool):
     T = sim + buf
     regime, ids, signs, sw, offs = chain_inputs(model_t, B_CHUNK, sim, buf)
     ja = joint_args(model_t, regime, ids, signs, sw)
-    ms, xk = timed(lambda: joint.joint_generate(*ja), 2)
+    k1_ms, xk = spread(lambda: joint.joint_generate(*ja), 5)
+    digests = [bit_digest(x) for x in xk]
+    want = JOINT_DIGESTS_PR1["quick" if quick else "full"]
+    assert digests == want, ("K1 is not the PR 1 kernel bit for bit",
+                             digests, want)
+    # The same kernel on the chunk's first 4,096 trials: one block an SM
+    # instead of four.
+    q = B_CHUNK // 4
+    jq = (*ja[:2], regime[:, :q].contiguous(), ids[:q].contiguous(),
+          signs[:q].contiguous(), sw)
+    k1q_ms, _ = spread(lambda: joint.joint_generate(*jq), 3)
     plain_ms, xp = timed(lambda: joint.joint_plain(*ja), 1, warm=False)
     errs = [float((a - b).abs().max()) for a, b in zip(xk, xp)]
     for c in (0, 1, 2, 4):
         torch.testing.assert_close(xk[c], xp[c], rtol=1e-4, atol=1e-6)
     torch.testing.assert_close(xk[3], xp[3], rtol=0, atol=1e-3)
     log(f"K1 joint vs plain at B={B_CHUNK} T={T}: max abs err x0..x2 "
-        f"{max(errs[:3]):.3e}, vix {errs[3]:.3e}, irx {errs[4]:.3e}; "
-        f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
+        f"{max(errs[:3]):.3e}, vix {errs[3]:.3e}, irx {errs[4]:.3e}; output "
+        f"digests equal the PR 1 kernel's; kernel {fmt_spread(k1_ms)} over 5 "
+        f"runs (at B={q}: {fmt_spread(k1q_ms)}), plain {plain_ms:.3f} ms")
     rec["joint"] = with_bound(
-        dict(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms),
+        dict(max_abs_err=max(errs), ms=k1_ms[1], plain_ms=plain_ms,
+             ms_spread=k1_ms, quarter_ms_spread=k1q_ms, digest_match=True),
         (T + 5 * T) * B_CHUNK * 4 + 8 * B_CHUNK,
         OPS_PER_TRIAL_DAY["joint"] * T * B_CHUNK)
     del xp
@@ -1496,7 +1542,8 @@ def main():
             launches_by_path={p: v[k] for p, v in launches.items()},
             **{x: r[x] for x in ("days", "plain_days", "fused", "ms_spread",
                                  "paired_ms_spread", "equal_ms_spread",
-                                 "quarter_ms_spread") if x in r}))
+                                 "quarter_ms_spread", "digest_match")
+               if x in r}))
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(info))
     print(smi)

@@ -52,6 +52,65 @@ def test_joint_kernel_matches_plain(dev):
     torch.testing.assert_close(got[3], ref[3], rtol=0, atol=1e-3)
 
 
+def joint_case(dev, n_trials, days, n_cheb, seed):
+    """K1 arguments for n_trials antithetic-paired trials x days: a regime
+    path per pair, the model's table, and ``n_cheb`` Chebyshev coefficients
+    (the model's 14, cut short or extended by small random terms)."""
+    model = default_sim_model()
+    rs = np.random.default_rng(seed)
+    half = np.cumsum(rs.random((days, (n_trials + 1) // 2)) < 0.1, axis=0) % 2
+    regime = np.repeat(half, 2, axis=1)[:, :n_trials]
+    cheb = np.asarray(model.joint.chi_cheb, np.float64)
+    if n_cheb <= cheb.shape[1]:
+        cheb = cheb[:, :n_cheb]
+    else:
+        extra = 1e-3 * rs.standard_normal((cheb.shape[0],
+                                           n_cheb - cheb.shape[1]))
+        cheb = np.concatenate([cheb, extra], axis=1)
+    rows = torch.arange(n_trials, device=dev)
+    return (tparams.pack_joint_params(model).to(dev),
+            torch.as_tensor(cheb, dtype=torch.float32, device=dev),
+            torch.as_tensor(regime, dtype=torch.float32, device=dev),
+            (rows // 2).to(torch.int32),
+            torch.where(rows % 2 == 1, -1.0, 1.0).to(torch.float32), [9, 11])
+
+
+@pytest.mark.parametrize("n_trials,days,n_cheb", [
+    (650, T, 14), (33, T, 14), (B, 1, 14), (B, 12 * 7 + 5, 14),
+    (256, T, 1), (256, T, 32)])
+def test_joint_kernel_matches_plain_edge_cases(dev, n_trials, days, n_cheb):
+    """K1 against its plain version where the strip-and-ring design has
+    edges: a ragged last 32-trial strip (650, 33 trials), day 0 alone, a
+    day count that ends inside a 12-day ring tile, and the shortest and
+    longest Chebyshev tables the kernel takes."""
+    args = joint_case(dev, n_trials, days, n_cheb, seed=n_trials + days)
+    n0 = joint.LAUNCHES
+    got = joint.joint_generate(*args)
+    assert joint.LAUNCHES == n0 + 1
+    ref = joint.joint_plain(*args)
+    for c in (0, 1, 2, 4):
+        torch.testing.assert_close(got[c], ref[c], rtol=1e-4, atol=1e-6)
+    torch.testing.assert_close(got[3], ref[3], rtol=0, atol=1e-3)
+
+
+def test_joint_kernel_bitwise_under_trial_shuffle(dev):
+    """Each trial's outputs depend on its own (regime column, id, sign)
+    only: the same triples of a paired B = 2,048 in a random order give,
+    once un-shuffled, the same bits. No lane reads another strip's or
+    another pair's values."""
+    params, cheb, regime, ids, signs, sw = joint_case(dev, B, T, 14, seed=3)
+    got = joint.joint_generate(params, cheb, regime, ids, signs, sw)
+    perm = torch.as_tensor(np.random.default_rng(4).permutation(B),
+                           device=dev)
+    shuf = joint.joint_generate(params, cheb, regime[:, perm].contiguous(),
+                                ids[perm].contiguous(),
+                                signs[perm].contiguous(), sw)
+    inv = torch.argsort(perm)
+    for a, s in zip(got, shuf):
+        assert torch.equal(a.view(torch.int32),
+                           s[:, inv].contiguous().view(torch.int32))
+
+
 def test_window_kernel_bitwise(dev):
     regime, _, _, _, offs = inputs(dev)
     g = torch.Generator(device=dev).manual_seed(1)
@@ -294,7 +353,9 @@ def test_strategies_kernel_matches_plain(dev, fused, with_cashflows):
 
 def test_kernel_info_reports_every_kernel(dev):
     """letf_kernel_info: every kernel of the library fits on an SM at its
-    launch shape, and K3 keeps more than 4 warps resident an SM."""
+    launch shape; K3 keeps more than 4 warps resident an SM, and K1 at
+    least 12 (4 blocks of one recurrence and three draw warps) without
+    spilling."""
     from letf_tpu_torch.ops import _build
 
     info = _build.kernel_info()
@@ -302,6 +363,8 @@ def test_kernel_info_reports_every_kernel(dev):
     for name, v in info.items():
         assert v["registers"] > 0 and v["blocks_per_sm"] >= 1, (name, v)
     assert info["compose_strategies"]["warps_per_sm"] > 4, info
+    assert info["joint"]["warps_per_sm"] >= 12, info
+    assert info["joint"]["local_bytes"] == 0, info
 
 
 def test_gbm_kernel_matches_plain(dev):
