@@ -98,7 +98,8 @@ OPS_PER_TRIAL_DAY = {"joint": 419, "compose_strategies": 2000,
 # bit_digest of K1's five outputs (x0, x1, x2, VIX, IRX) from the PR 1
 # kernel (one thread per trial), on chain_inputs at seed 2 over the chunk's
 # 16,384 trials: the --quick shape (252 + 126 days) and the full one
-# (7,560 + 1,260). Every later K1 must reproduce them bit for bit.
+# (7,560 + 1,260), as tools/joint_digests.py prints them for a checkout
+# that still has that kernel. Every later K1 must reproduce them.
 JOINT_DIGESTS_PR1 = {
     "quick": [8022251606426999569, -6531180406265040227, 862387567883774011,
               -5197426976195207276, 4348479962836073629],

@@ -1,10 +1,9 @@
 // Exploratory builds of kernel K1 (letf_tpu_torch/csrc/joint.cu) for
 // tools/joint_probe.py: the kernel with its template knobs turned (draw
-// warps, ring tiles, parameter rows or blend, placement, IeeeMath or
-// FastMath, pair sharing); the draw warps alone (the recurrence warp only
-// meets its barriers); the draws into a device buffer, and the recurrence
-// alone fed from that buffer (one warp per 32 trials); and sin_cos against
-// sinf/cosf on every Box-Muller angle.
+// warps, ring tiles, IeeeMath or FastMath, pair sharing); the draw warps
+// alone (the recurrence warp only meets its barriers); the draws into a
+// device buffer, and the recurrence alone fed from that buffer (one warp
+// per 32 trials); and sin_cos against sinf/cosf on every Box-Muller angle.
 
 #include "joint.cu"
 
@@ -15,21 +14,19 @@ __global__ void __launch_bounds__(32 * (W + 1), MIN_BLOCKS)
 draw_only_kernel(Args a, const float* __restrict__ params,
                  const float* __restrict__ cheb) {
   __shared__ Shared<NSLOT> sh;
-  block_setup(sh.tb, sh.slot, params, cheb, a.n_cheb);
+  block_setup(sh.tb, params, cheb, a.n_cheb);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int b = blockIdx.x * 32 + lane;
   const int bc = b < a.B ? b : a.B - 1;
   const int ntile = (a.T + D - 1) / D;
-  const int rw = recurrence_warp<true>(sh.slot, W + 1);
-  if (warp == rw) {
+  if (warp == 0) {
     for (int k = 0; k < ntile; ++k) {
       bar_sync(full_bar(k % NSLOT), 32 * (W + 1));
       if (k + NSLOT < ntile)
         bar_arrive(empty_bar<NSLOT>(k % NSLOT), 32 * (W + 1));
     }
   } else {
-    draw_role<W, NSLOT, true, true, PAIRS>(sh, a, warp < rw ? warp : warp - 1,
-                                           lane, b, bc, ntile);
+    draw_role<W, NSLOT, true, PAIRS>(sh, a, warp - 1, lane, b, bc, ntile);
   }
 }
 
@@ -38,8 +35,7 @@ __global__ void draws_to_buffer_kernel(Args a, const float* __restrict__ params,
                                        const float* __restrict__ cheb,
                                        float* __restrict__ buf) {
   __shared__ Tables tb;
-  __shared__ int slot[8];
-  block_setup(tb, slot, params, cheb, a.n_cheb);
+  block_setup(tb, params, cheb, a.n_cheb);
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= a.B) return;
   const uint32_t lane_key = letf_lane_key(a.ids[b], a.s0);
@@ -47,8 +43,8 @@ __global__ void draws_to_buffer_kernel(Args a, const float* __restrict__ params,
   for (int t = 0; t < a.T; ++t) {
     float nrm[6], v[NRING], irx;
     normals_step<true>(letf_day_key(lane_key, (uint32_t)t, a.s1), nrm);
-    finish_step<true, true>(tb, a.n_cheb, nrm, a.regime[(size_t)t * a.B + b],
-                            sign, v, irx);
+    finish_step<true>(tb, a.n_cheb, nrm, a.regime[(size_t)t * a.B + b], sign,
+                      v, irx);
 #pragma unroll
     for (int f = 0; f < NRING; ++f) buf[((size_t)t * NRING + f) * a.B + b] = v[f];
     a.irx[(size_t)t * a.B + b] = irx;
@@ -62,8 +58,7 @@ recurrence_only_kernel(Args a, const float* __restrict__ params,
                        const float* __restrict__ cheb,
                        const float* __restrict__ buf) {
   __shared__ Tables tb;
-  __shared__ int slot[8];
-  block_setup(tb, slot, params, cheb, a.n_cheb);
+  block_setup(tb, params, cheb, a.n_cheb);
   const int b = blockIdx.x * 32 + threadIdx.x;
   const int bc = b < a.B ? b : a.B - 1;
   auto load = [&](int t, float* v) {
@@ -80,7 +75,7 @@ recurrence_only_kernel(Args a, const float* __restrict__ params,
 #pragma unroll
     for (int f = 0; f < NRING; ++f) { v[f] = n1[f]; n1[f] = n2[f]; }
     load(t + 2, n2);
-    recur_step<true, FAST>(tb, c, t == 0, v, x);
+    recur_step<FAST>(tb, c, t == 0, v, x);
     if (b < a.B) {
       const size_t at = (size_t)t * a.B + b;
       a.x0[at] = x[0];
@@ -106,36 +101,24 @@ __global__ void sincos_check_kernel(int* bad) {
 
 }  // namespace
 
-// Variants of joint_kernel<W draw warps, ring tiles, parameter rows (or
-// blend), spread placement (or warp 0), FastMath (or IeeeMath), pair
-// sharing>: 0 W 3, 4 tiles, rows, spread, IEEE; 1 W 2; 2 W 4; 3 two tiles;
-// 4 three tiles; 5 blend; 6 warp 0; 11 variant 0 with FastMath; 12
-// FastMath, blend; 13 FastMath, blend, warp 0; 14 FastMath, blend, W 2;
-// 15 FastMath, blend, W 4; 16 FastMath, blend, two tiles; 18 FastMath,
-// pairs (the shipped build); 19 the same, W 2; 20 warp 0; 21 two tiles.
-// Others: 7 the draw warps alone (FastMath); 17 the same with pairs; 8 the
-// draws into buf (and IRX); 9 the recurrence alone from buf, IEEE; 10 the
-// same, FastMath.
+// Variants of joint_kernel<draw warps, ring tiles, FastMath (or IeeeMath),
+// pair sharing>: 0 IeeeMath, no pairs; 1 FastMath, no pairs; 2 the
+// shipped build (3 warps, 2 tiles, FastMath, pairs); 3 the same with 2
+// draw warps; 4 4 draw warps, no pairs (4 days a tile each: no pairing);
+// 5 4 tiles; 6 3 tiles; 12 IeeeMath with pairs. Others: 7 the draw warps
+// alone, no pairs; 11 the same with pairs; 8 the draws into buf (and IRX);
+// 9 the recurrence alone from buf, IeeeMath; 10 the same, FastMath.
 #define LETF_PROBE_VARIANTS(X)                                          \
-  X(0, 128, joint_kernel<3, 4, true, true, false, false>)              \
-  X(1, 96, joint_kernel<2, 4, true, true, false, false>)               \
-  X(2, 160, joint_kernel<4, 4, true, true, false, false>)              \
-  X(3, 128, joint_kernel<3, 2, true, true, false, false>)              \
-  X(4, 128, joint_kernel<3, 3, true, true, false, false>)              \
-  X(5, 128, joint_kernel<3, 4, false, true, false, false>)             \
-  X(6, 128, joint_kernel<3, 4, true, false, false, false>)             \
-  X(7, 128, draw_only_kernel<3, 4, false>)                             \
-  X(11, 128, joint_kernel<3, 4, true, true, true, false>)              \
-  X(12, 128, joint_kernel<3, 4, false, true, true, false>)             \
-  X(13, 128, joint_kernel<3, 4, false, false, true, false>)            \
-  X(14, 96, joint_kernel<2, 4, false, true, true, false>)              \
-  X(15, 160, joint_kernel<4, 4, false, true, true, false>)             \
-  X(16, 128, joint_kernel<3, 2, false, true, true, false>)             \
-  X(17, 128, draw_only_kernel<3, 4, true>)                             \
-  X(18, 128, joint_kernel<3, 4, true, true, true, true>)               \
-  X(19, 96, joint_kernel<2, 4, true, true, true, true>)                \
-  X(20, 128, joint_kernel<3, 4, true, false, true, true>)              \
-  X(21, 128, joint_kernel<3, 2, true, true, true, true>)
+  X(0, 128, joint_kernel<3, 2, false, false>)                          \
+  X(1, 128, joint_kernel<3, 2, true, false>)                           \
+  X(2, 128, joint_kernel<3, 2, true, true>)                            \
+  X(3, 96, joint_kernel<2, 2, true, true>)                             \
+  X(4, 160, joint_kernel<4, 2, true, false>)                           \
+  X(5, 128, joint_kernel<3, 4, true, true>)                            \
+  X(6, 128, joint_kernel<3, 3, true, true>)                            \
+  X(7, 128, draw_only_kernel<3, 2, false>)                             \
+  X(11, 128, draw_only_kernel<3, 2, true>)                             \
+  X(12, 128, joint_kernel<3, 2, false, true>)
 
 extern "C" int probe_joint(int variant, const float* params,
                            const float* cheb, int n_cheb,
@@ -173,9 +156,14 @@ extern "C" int probe_info(int variant, int* out) {
 #define LETF_INFO(v, threads, ...) \
     case v: return letf_fill_info((const void*)__VA_ARGS__, threads, 0, out);
     LETF_PROBE_VARIANTS(LETF_INFO)
-    case 8: return letf_fill_info((const void*)draws_to_buffer_kernel, 128, 0, out);
-    case 9: return letf_fill_info((const void*)recurrence_only_kernel<false>, 32, 0, out);
-    case 10: return letf_fill_info((const void*)recurrence_only_kernel<true>, 32, 0, out);
+    case 8:
+      return letf_fill_info((const void*)draws_to_buffer_kernel, 128, 0, out);
+    case 9:
+      return letf_fill_info((const void*)recurrence_only_kernel<false>, 32, 0,
+                            out);
+    case 10:
+      return letf_fill_info((const void*)recurrence_only_kernel<true>, 32, 0,
+                            out);
     default: return 1;
   }
 }

@@ -9,11 +9,11 @@ Builds ``tools/joint_probe.cu`` (which includes
 ``build/letf_tpu_torch/probe/``. First checks ``sin_cos`` against
 ``sinf``/``cosf`` on all 2^24 Box-Muller angles. Then times, on
 ``chip_smoke.chain_inputs`` at seed 2 (30 years + 5-year buffer), the
-kernel with its template knobs turned (draw warps, ring tiles, parameter
-rows or blend, placement, IeeeMath or FastMath, pair sharing; each held
-bitwise to the shipped kernel's outputs), the draw warps alone, and the
-recurrence alone fed from a device buffer of the draws (the buffer's draws
-first, bitwise the shipped kernel's IRX). Each as min/median/max over
+kernel with its template knobs turned (draw warps, ring tiles, IeeeMath
+or FastMath, pair sharing; each held bitwise to the shipped kernel's
+outputs), the draw warps alone, and the recurrence alone fed from a device
+buffer of the draws (the buffer's draws first, bitwise the shipped
+kernel's IRX). Each as min/median/max over
 ``--reps`` runs by CUDA events, on all trials and on a quarter of them,
 with its ``kernel_info``. Then a static count of the SASS instructions in
 each kernel's loops (``cuobjdump -sass``). Prints one JSON object a line;
@@ -39,25 +39,19 @@ import chip_smoke  # noqa: E402
 from letf_tpu_torch.models.params import default_sim_model, from_numpy  # noqa: E402
 from letf_tpu_torch.ops import _build, joint, rng  # noqa: E402
 
-VARIANTS = {0: "W 3, 4 tiles, rows, spread, IEEE", 1: "W 2", 2: "W 4",
-            3: "2 tiles", 4: "3 tiles", 5: "blend parameters",
-            6: "recurrence on warp 0", 7: "draw warps alone",
-            8: "draws into a buffer",
-            9: "recurrence alone from the buffer, IEEE",
-            10: "recurrence alone from the buffer, FastMath",
-            11: "variant 0 with FastMath", 12: "FastMath, blend",
-            13: "FastMath, blend, warp 0", 14: "FastMath, blend, W 2",
-            15: "FastMath, blend, W 4", 16: "FastMath, blend, 2 tiles",
-            17: "draw warps alone, pairs", 18: "FastMath, pairs (shipped)",
-            19: "FastMath, pairs, W 2", 20: "FastMath, pairs, warp 0",
-            21: "FastMath, pairs, 2 tiles"}
-FULL = (0, 1, 2, 3, 4, 5, 6, 11, 12, 13, 14, 15, 16, 18, 19, 20, 21)
-KERNEL_NAMES = {"joint_kernel": "joint_kernel<", "draw_only": "draw_only_kernel",
-                "recurrence_only": "recurrence_only_kernel",
-                "draws_to_buffer": "draws_to_buffer_kernel"}
+VARIANTS = {0: "IeeeMath, no pairs", 1: "FastMath, no pairs",
+            2: "shipped: W 3, 2 tiles, FastMath, pairs", 3: "W 2",
+            4: "W 4, no pairs", 5: "4 tiles", 6: "3 tiles",
+            12: "IeeeMath, pairs", 7: "draw warps alone, no pairs",
+            11: "draw warps alone, pairs", 8: "draws into a buffer",
+            9: "recurrence alone from the buffer, IeeeMath",
+            10: "recurrence alone from the buffer, FastMath"}
+FULL = (0, 1, 2, 3, 4, 5, 6, 12)
+KERNEL_NAMES = ("joint_kernel<", "draw_only_kernel", "recurrence_only_kernel",
+                "draws_to_buffer_kernel")
 
 
-def build() -> ctypes.CDLL:
+def build() -> tuple[ctypes.CDLL, Path]:
     out_dir = _build.BUILD_DIR / "probe"
     out_dir.mkdir(parents=True, exist_ok=True)
     lib = out_dir / "libjoint_probe.so"
@@ -89,7 +83,7 @@ def sass_loops(lib: Path) -> dict:
     out = {}
     for chunk in txt.split("Function : ")[1:]:
         name = chunk.split("\n", 1)[0].strip()
-        if not any(v in name for v in KERNEL_NAMES.values()):
+        if not any(k in name for k in KERNEL_NAMES):
             continue
         ins = re.findall(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", chunk)
         addr = [int(a, 16) for a, _ in ins]
