@@ -15,17 +15,17 @@ Phases, each raising on failure:
    on the same inputs, at the main paths' shapes (B=16,384 trials, 30
    years + 5-year buffer; with --quick a 252-day window and a 126-day
    buffer): K1 (joint) within rtol 1e-4 / VIX atol 1e-3 and bit for bit
-   the PR 1 kernel (its output digests, stored below), K2 (window)
-   bitwise (independent, antithetic-paired and equal offsets, a ragged B
-   of 650, a span past one 32-trial ring), K3 (compose + strategies) within
-   compose_strategies.check_parity's bounds, K5 (compose) within rtol 1e-5
-   / atol 1e-6, K7 (bridge merge, merge and valley kinds, [2S, 600] and
-   [2S, 2,048] with 0/2/4 payloads) and K8 (wash matching, [S, 650])
-   bitwise; K6 (buy-and-hold) within rtol 1e-5 at 1,048,576 x 30 years
-   (K4 follows in phase 8, on the main path's channels; with --quick here,
-   at 16,384 x 252 days). Each kernel's time beside the plain version's,
-   its bound and, where one PyTorch call computes the same function, that
-   call's time; K1, K2 and K3 as min/median/max over 5, 5 and 3 runs,
+   the first port's one-thread-a-trial kernel (its output digests, stored
+   below), K2 (window) bitwise (independent, antithetic-paired and equal
+   offsets, a ragged B of 650, a span past one 32-trial ring), K3
+   (compose + strategies) within compose_strategies.check_parity's
+   bounds, K5 (compose) within rtol 1e-5 / atol 1e-6, K7 (bridge merge,
+   merge and valley kinds, [2S, 600] and [2S, 2,048] with 0/2/4 payloads)
+   and K8 (wash matching, [S, 650]) bitwise; K6 (buy-and-hold) within
+   rtol 1e-5 at 1,048,576 x 30 years (K4 follows in phase 8, on the main
+   path's channels; with --quick here, at 16,384 x 252 days). Each
+   kernel's time beside the plain version's, its bound and, where one
+   PyTorch call computes the same function, that call's time; K1, K2 and K3 as min/median/max over 5, 5 and 3 runs,
    K1 and K3 also on the chunk's first 4,096 trials (3 runs).
 4. Reports through kernels vs plain versions on the card: 1,024 trials x
    0.5 year pre-tax, and the default sampled report at 1,024 x 1 year.
@@ -95,12 +95,12 @@ OPS_PER_TRIAL_DAY = {"joint": 419, "compose_strategies": 2000,
                      "compose": 640, "gbm": 16}
 
 
-# bit_digest of K1's five outputs (x0, x1, x2, VIX, IRX) from the PR 1
-# kernel (one thread per trial), on chain_inputs at seed 2 over the chunk's
+# bit_digest of K1's five outputs (x0, x1, x2, VIX, IRX) from the first
+# port's kernel (one thread per trial), on chain_inputs at seed 2 over the chunk's
 # 16,384 trials: the --quick shape (252 + 126 days) and the full one
 # (7,560 + 1,260), as tools/joint_digests.py prints them for a checkout
 # that still has that kernel. Every later K1 must reproduce them.
-JOINT_DIGESTS_PR1 = {
+JOINT_DIGESTS_FIRST_PORT = {
     "quick": [8022251606426999569, -6531180406265040227, 862387567883774011,
               -5197426976195207276, 4348479962836073629],
     "full": [4406066641351886039, -6543449953699000622, 7058428530418077991,
@@ -292,8 +292,8 @@ def phase_kernels(model_t, quick: bool):
     ja = joint_args(model_t, regime, ids, signs, sw)
     k1_ms, xk = spread(lambda: joint.joint_generate(*ja), 5)
     digests = [bit_digest(x) for x in xk]
-    want = JOINT_DIGESTS_PR1["quick" if quick else "full"]
-    assert digests == want, ("K1 is not the PR 1 kernel bit for bit",
+    want = JOINT_DIGESTS_FIRST_PORT["quick" if quick else "full"]
+    assert digests == want, ("K1 is not the first port's kernel bit for bit",
                              digests, want)
     # The same kernel on the chunk's first 4,096 trials: one block an SM
     # instead of four.
@@ -308,7 +308,7 @@ def phase_kernels(model_t, quick: bool):
     torch.testing.assert_close(xk[3], xp[3], rtol=0, atol=1e-3)
     log(f"K1 joint vs plain at B={B_CHUNK} T={T}: max abs err x0..x2 "
         f"{max(errs[:3]):.3e}, vix {errs[3]:.3e}, irx {errs[4]:.3e}; output "
-        f"digests equal the PR 1 kernel's; kernel {fmt_spread(k1_ms)} over 5 "
+        f"digests equal the first port's; kernel {fmt_spread(k1_ms)} over 5 "
         f"runs (at B={q}: {fmt_spread(k1q_ms)}), plain {plain_ms:.3f} ms")
     rec["joint"] = with_bound(
         dict(max_abs_err=max(errs), ms=k1_ms[1], plain_ms=plain_ms,

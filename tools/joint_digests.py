@@ -13,7 +13,8 @@ builds its own kernels into its own ``build/``) on
 of each of its five outputs, then its min/median/max milliseconds by CUDA
 events over 5 runs at the full shape and 3 runs on the first 4,096
 trials, with the card's name and power limit. ``chip_smoke.py``'s
-``JOINT_DIGESTS_PR1`` are these digests of the PR 1 kernel.
+``JOINT_DIGESTS_FIRST_PORT`` are these digests of the first port's
+kernel (one thread per trial).
 """
 
 from __future__ import annotations
@@ -62,8 +63,8 @@ def main():
     jq = (*ja[:2], regime[:, :q].contiguous(), ids[:q].contiguous(),
           signs[:q].contiguous(), sw)
     out["quarter_ms"], _ = cs.spread(lambda: joint.joint_generate(*jq), 3)
-    out["matches_pr1"] = [out[k] == cs.JOINT_DIGESTS_PR1[k]
-                          for k in ("quick", "full")]
+    out["matches_first_port"] = [
+        out[k] == cs.JOINT_DIGESTS_FIRST_PORT[k] for k in ("quick", "full")]
     print(json.dumps(out), flush=True)
 
 
