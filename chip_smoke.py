@@ -88,18 +88,20 @@ PEAK_F32 = 67e12
 # scale and offset, Box-Muller, the 13-step Clenshaw pass at 4 each, expf,
 # the scale, the signs, IRX) and 304 in the carry chain (GARCH, DCC, the
 # correlation and Cholesky, x, z, VIX), each NaN-propagating max or min
-# counted as 3 (two NaN compares and the max), a clip as 6; the
-# per-regime parameter rows are loads, not operations.
+# counted as 3 (two NaN compares and the max), a clip as 6. The regime
+# blends of the parameters (pa + pd * r) are not counted: with the regime 0
+# or 1, as the model's is, per-regime rows would make them loads.
 OPS_PER_TRIAL_DAY = {"joint": 419, "compose_strategies": 2000,
                      "strategies": 1200, "strategies_fused": 1500,
                      "compose": 640, "gbm": 16}
 
 
 # bit_digest of K1's five outputs (x0, x1, x2, VIX, IRX) from the first
-# port's kernel (one thread per trial), on chain_inputs at seed 2 over the chunk's
-# 16,384 trials: the --quick shape (252 + 126 days) and the full one
-# (7,560 + 1,260), as tools/joint_digests.py prints them for a checkout
-# that still has that kernel. Every later K1 must reproduce them.
+# port's kernel (one thread per trial, csrc/joint.cu before the draw warps
+# in the git history), on chain_inputs at seed 2 over the chunk's 16,384
+# trials: the --quick shape (252 + 126 days) and the full one (7,560 +
+# 1,260), as this script's K1 phase computes them. Every later K1 must
+# reproduce them.
 JOINT_DIGESTS_FIRST_PORT = {
     "quick": [8022251606426999569, -6531180406265040227, 862387567883774011,
               -5197426976195207276, 4348479962836073629],

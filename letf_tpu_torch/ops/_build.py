@@ -50,6 +50,7 @@ SIGNATURES = {
     "letf_strategies": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P],
     "letf_gbm": [_U, _U, _I, _I, _F, _F, _F, _F, _P, _P, _P],
     "letf_kernel_info": [_I, _P],
+    "letf_joint_math_check": [_P, _P, _I, _P, _P],
 }
 # The kernels letf_kernel_info reports on, in its index order (csrc/info.cu),
 # and the fields of each report (common.cuh::letf_fill_info).

@@ -111,6 +111,105 @@ def test_joint_kernel_bitwise_under_trial_shuffle(dev):
                            s[:, inv].contiguous().view(torch.int32))
 
 
+def math_check(a, b):
+    """letf_joint_math_check on float32 operands ``a``, ``b`` ([n], CUDA):
+    rows of FastMath a / b, a / b, its range flag (1 or 0), FastMath
+    sqrt(a), sqrtf(a), its flag, sin_cos(a)'s sine, sinf(a), its cosine
+    and cosf(a), as K1 computes them."""
+    from letf_tpu_torch.ops import _build
+
+    out = torch.empty((10, a.numel()), device=a.device)
+    _build.check(_build.library().letf_joint_math_check(
+        a.data_ptr(), b.data_ptr(), a.numel(), out.data_ptr(),
+        _build.stream_of(a)), "letf_joint_math_check")
+    return out
+
+
+def float_bits(dev, bits):
+    return torch.as_tensor(np.asarray(bits, np.uint32).view(np.int32),
+                           device=dev).view(torch.float32)
+
+
+def random_floats(dev, rs, exponents, n, signed=True):
+    """n float32 of unbiased exponents drawn from ``exponents``, with random
+    mantissas (and signs)."""
+    e = rs.choice(np.asarray(exponents), n) + 127
+    bits = (e << 23) | rs.integers(0, 1 << 23, n)
+    if signed:
+        bits |= rs.integers(0, 2, n) << 31
+    return float_bits(dev, bits)
+
+
+def same_bits(x, y):
+    return torch.equal(x.view(torch.int32), y.view(torch.int32))
+
+
+def test_joint_fast_division_is_ieee_in_its_range(dev):
+    """K1's FastMath.div is ``a / b`` bit for bit wherever its flag holds:
+    |a| and |b| in [2^-40, 2^41) at random, mantissas at the ends of a
+    binade against each other at the range's ends and middle, and a = +-0.
+    Just outside the range (exponents -46..-41 and 41..46 in either
+    operand) the flag falls, so K1 recomputes that day by IEEE."""
+    rs = np.random.default_rng(8)
+    n = 1 << 22
+    inside = np.arange(-40, 41)
+    a, b = (random_floats(dev, rs, inside, n) for _ in range(2))
+    mant = np.array([0, 1, 2, 3, (1 << 22) - 1, 1 << 22, (1 << 23) - 2,
+                     (1 << 23) - 1])
+    grid = ((np.array([-40, -1, 0, 1, 40])[:, None] + 127) << 23
+            | mant).ravel()
+    ga, gb = np.repeat(grid, grid.size), np.tile(grid, grid.size)
+    neg = np.uint32(1 << 31)
+    ga = np.concatenate([ga, ga | neg, ga, 0 * grid, 0 * grid | neg])
+    gb = np.concatenate([gb, gb, gb | neg, grid, grid])
+    out = math_check(torch.cat([a, float_bits(dev, ga)]),
+                     torch.cat([b, float_bits(dev, gb)]))
+    assert bool((out[2] == 1).all())
+    assert same_bits(out[0], out[1])
+    outside = np.r_[-46:-40, 41:47]
+    far = random_floats(dev, rs, outside, n // 4)
+    near = random_floats(dev, rs, inside, n // 4)
+    for x, y in ((far, near), (near, far)):
+        assert bool((math_check(x, y)[2] == 0).all())
+
+
+def test_joint_fast_sqrt_is_ieee_in_its_range(dev):
+    """K1's FastMath.sqrt is ``sqrtf`` bit for bit on [2^-101, FLT_MAX]:
+    every mantissa of [1, 4) (an even and an odd exponent), random
+    operands over the range, and its two ends. Below it (2^-126..2^-102,
+    a denormal, +-0), on negatives, inf and NaN the flag falls."""
+    rs = np.random.default_rng(9)
+    every = (127 << 23) + np.arange(1 << 24)
+    x = torch.cat([float_bits(dev, every),
+                   random_floats(dev, rs, np.arange(-101, 128), 1 << 22,
+                                 signed=False),
+                   float_bits(dev, [0x0d000000, 0x7f7fffff])])
+    out = math_check(x, x)
+    assert bool((out[5] == 1).all())
+    assert same_bits(out[3], out[4])
+    y = torch.cat([random_floats(dev, rs, np.arange(-126, -101), 1 << 20,
+                                 signed=False),
+                   float_bits(dev, [0x0cffffff, 1, 0, 0x80000000,
+                                    0xbf800000, 0x7f800000, 0x7fc00000])])
+    assert bool((math_check(y, y)[5] == 0).all())
+
+
+def test_joint_sin_cos_is_the_library_fast_path(dev):
+    """K1's sin_cos is ``sinf`` and ``cosf`` bit for bit on every
+    Box-Muller angle 2 pi u that a counter uniform u = (k + 1/2) 2^-24
+    gives (all 2^24 of them, as common.cuh's letf_unit rounds them), and on
+    random |x| < 105615, the library's fast-path range."""
+    k = torch.arange(1 << 24, device=dev, dtype=torch.int32)
+    u = k.to(torch.float32) * (1.0 / 16777216.0) + (0.5 / 16777216.0)
+    rs = np.random.default_rng(10)
+    x = torch.cat([u * 6.283185307179586,
+                   torch.as_tensor(rs.uniform(-105614.0, 105614.0, 1 << 22),
+                                   dtype=torch.float32, device=dev)])
+    out = math_check(x, x)
+    assert same_bits(out[6], out[7])
+    assert same_bits(out[8], out[9])
+
+
 def test_window_kernel_bitwise(dev):
     regime, _, _, _, offs = inputs(dev)
     g = torch.Generator(device=dev).manual_seed(1)
