@@ -21,7 +21,8 @@ Phases, each raising on failure:
    (compose + strategies) within compose_strategies.check_parity's
    bounds, K5 (compose) within rtol 1e-5 / atol 1e-6, K7 (bridge merge,
    merge and valley kinds, [2S, 600] and [2S, 2,048] with 0/2/4 payloads)
-   and K8 (wash matching, [S, 650]) bitwise; K6 (buy-and-hold) within
+   and K8 (wash matching, [S, 650], and edge cases at 1, 33 and 650
+   trials) bitwise; K6 (buy-and-hold) within
    rtol 1e-5 at 1,048,576 x 30 years (K4 follows in phase 8, on the main
    path's channels; with --quick here, at 16,384 x 252 days). Each
    kernel's time beside the plain version's, its bound and, where one
@@ -42,8 +43,9 @@ Phases, each raising on failure:
 8. This slice's main path, monte_carlo_report(default_sim_model(), 30,
    32,768 trials, seed 2, engine_mode="parametric") with its default
    sampled taxes, the seconds of each stage of one of its chunks, K4
-   (strategies) against its plain version on that chunk's channels within
-   check_parity's bounds (channel mode over 16,384 x 7,560 days,
+   (strategies) on that chunk's channels bit for bit the first port's
+   kernel (its output digests, stored below) and within check_parity's
+   bounds of its plain version (channel mode over 16,384 x 7,560 days,
    fused-signals mode over its first 504), then the parametric report
    through kernels and through plain versions (1,024 x 0.5 year), and the
    first 1,024 trials of the parametric run held to the JAX package's
@@ -107,6 +109,20 @@ JOINT_DIGESTS_FIRST_PORT = {
               -5197426976195207276, 4348479962836073629],
     "full": [4406066641351886039, -6543449953699000622, 7058428530418077991,
              -253267574117871014, -7552742787963051914]}
+
+
+# bit_digest of K4's three outputs (final wealth, trade counts, max
+# drawdown) from the first port's kernel (one thread per trial, csrc/
+# strategies.cu before the group warps in the git history), on the
+# parametric chunk's 23 channels (parametric_breakdown: 16,384 trials x
+# 7,560 days, seed 2) as k4_digests computes them: channel mode,
+# fused-signals mode, and channel mode with k4_cashflows and no costs.
+# Every later K4 must reproduce them.
+K4_DIGESTS_FIRST_PORT = {
+    "channel": [94221039556548971, 195363920246722, -3826228012210327674],
+    "fused": [94211092148682884, 195363068299635, -3826228185658061218],
+    "cashflows_no_costs": [2273546247011725738, 195363920246722,
+                           -3887716469964402089]}
 
 
 def bound(nbytes: float, ops: float):
@@ -521,33 +537,88 @@ def phase_k7(sim):
     return out
 
 
-def phase_k8(sim, B=650):
-    """K8 against its plain version, bitwise, at [sim, 650] on bridge-like
-    inputs (sparse buys, sells, losses on half the sells)."""
-    from letf_tpu_torch.ops import wash
-
-    g = torch.Generator(device="cuda").manual_seed(8)
-
+def wash_inputs(g, S, B):
+    """Bridge-like K8 inputs [S, B]: sparse buys, sells, losses on half the
+    sells."""
     def sparse(p, scale):
-        u = torch.rand((sim, B), generator=g, device="cuda")
-        v = torch.rand((sim, B), generator=g, device="cuda") * scale
+        u = torch.rand((S, B), generator=g, device="cuda")
+        v = torch.rand((S, B), generator=g, device="cuda") * scale
         return torch.where(u < p, v, 0.0)
 
     buy, sell = sparse(0.25, 6.0), sparse(0.15, 8.0)
-    loss = torch.where(sell > 0, sparse(0.5, 100.0), 0.0)
-    ms, got = timed(lambda: wash.wash_matching(loss, sell, buy), 3)
+    return torch.where(sell > 0, sparse(0.5, 100.0), 0.0), sell, buy
+
+
+def wash_edge_inputs(g, case, B):
+    """K8 edge cases at B trials: (name, [S, B] loss, sell, buy)."""
+    at = torch.tensor(0.001, dtype=torch.float32)
+    above = torch.nextafter(at, torch.tensor(1.0))
+    loss, sell, buy = wash_inputs(g, 97 if case != "one_day" else 1, B)
+    S = loss.shape[0]
+    if case == "every_day_a_loss":
+        loss = torch.rand((S, B), generator=g, device="cuda") * 50 + 1
+    elif case == "buys_every_day":
+        buy = torch.rand((S, B), generator=g, device="cuda") * 5 + 0.5
+    elif case == "buys_at_the_threshold":
+        pick = torch.randint(0, 3, (S, B), generator=g, device="cuda")
+        buy = torch.where(pick == 0, at.item(),
+                          torch.where(pick == 1, above.item(), 0.0))
+    elif case == "first_and_last_day_losses":
+        loss = torch.zeros_like(loss)
+        loss[[0, S - 1]] = 50.0
+        buy = torch.zeros_like(buy)
+        buy[[1, 30, 31, S - 2, S - 31, S - 32]] = 2.0
+    return loss, sell, buy
+
+
+WASH_EDGE_CASES = ("one_day", "ragged_days", "every_day_a_loss",
+                   "buys_every_day", "buys_at_the_threshold",
+                   "first_and_last_day_losses")
+
+
+def phase_k8(sim, B=650):
+    """K8 against its plain version, bitwise, at [sim, 650] on bridge-like
+    inputs (sparse buys, sells, losses on half the sells), and on edge
+    cases (one day, 97 days, a loss every day, a buy every day, buys of
+    exactly 0.001 shares and the next float, losses on the first and last
+    days) at 1, 33 and 650 trials. Its time by CUDA events around the
+    wrapper (three launches, their outputs and scratch allocated there;
+    the median of 5 runs) and the three kernels' device time by the
+    profiler."""
+    from letf_tpu_torch.ops import wash
+
+    g = torch.Generator(device="cuda").manual_seed(8)
+    loss, sell, buy = wash_inputs(g, sim, B)
+    ms_spread, got = spread(lambda: wash.wash_matching(loss, sell, buy), 5)
+    ms = ms_spread[1]
     plain_ms, ref = timed(lambda: wash.wash_plain(loss, sell, buy), 1,
                           warm=False)
     for a, b in zip(got, ref):
         assert torch.equal(a, b)
-    log(f"K8 wash vs plain at [{sim}, {B}]: bitwise equal "
-        f"({int(got[2].sum())} matched loss days); kernel {ms:.3f} ms, "
-        f"plain {plain_ms:.3f} ms")
-    # Each loss day probes the +-30-day window (61 days, ~3 operations a
-    # probe); every other day is a copy.
-    n_loss = int((loss > 0).sum())
-    return with_bound(dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms),
-                      6 * sim * B * 4, n_loss * 61 * 3)
+    _, dev_ms, top = device_profile(lambda: wash.wash_matching(loss, sell,
+                                                               buy))
+    n_edge = 0
+    for case in WASH_EDGE_CASES:
+        for nb in (1, 33, 650):
+            args = wash_edge_inputs(g, case, nb)
+            for a, b in zip(wash.wash_matching(*args), wash.wash_plain(*args)):
+                assert torch.equal(a, b), (case, nb)
+            n_edge += 1
+    n_match = int(got[2].sum())
+    log(f"K8 wash vs plain at [{sim}, {B}]: bitwise equal ({n_match} "
+        f"matched loss days, {int((loss > 0).sum())} loss days); bitwise on "
+        f"{n_edge} edge cases; kernel {fmt_spread(ms_spread)} over 5 runs, "
+        f"its three launches' device time {dev_ms:.4f} ms "
+        f"({'; '.join(f'{k[:40]} {v:.4f}' for k, v in top)}), plain "
+        f"{plain_ms:.3f} ms")
+    # Bytes: the three inputs read once, dis and off (4 bytes) and has (1)
+    # written once. Operations: the two float32 compares of every
+    # trial-day (loss > 0, buy > 0.001) and, on a matched loss day, the
+    # compare, max, division and product of the epilogue; the bitset
+    # matching is integer work.
+    return with_bound(dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+                           ms_spread=ms_spread, device_ms=dev_ms),
+                      21 * sim * B, 2 * sim * B + 4 * n_match)
 
 
 @contextlib.contextmanager
@@ -948,27 +1019,68 @@ def general_channels(model_t, days: int):
     return k4.channels_from(p, compute_signals(p))
 
 
-def phase_k4(chans, fused_plain_days=504):
+def k4_cashflows(S: int) -> torch.Tensor:
+    """The cashflow schedule of K4's digest run with cashflows: $500 in
+    every 21 days, $3,000 out at each year's last day."""
+    t = torch.arange(S, device="cuda")
+    return ((t % 21 == 0) * 500.0 - (t % 252 == 251) * 3000.0).to(
+        torch.float32)
+
+
+def k4_digests(chans) -> dict:
+    """bit_digest of K4's three outputs (final wealth, trade counts, max
+    drawdown) on the 23 channels ``chans``: channel mode, fused-signals
+    mode (the first 7), and channel mode with k4_cashflows and
+    apply_costs=False."""
+    from letf_tpu_torch.ops import strategies as k4
+
+    S = chans[0].shape[0]
+    runs = {"channel": lambda: k4.strategies_run(chans),
+            "fused": lambda: k4.strategies_run(chans[:k4.N_FUSED],
+                                               fused_signals=True),
+            "cashflows_no_costs": lambda: k4.strategies_run(
+                chans, cashflows=k4_cashflows(S), apply_costs=False)}
+    return {k: [bit_digest(x) for x in fn()] for k, fn in runs.items()}
+
+
+def phase_k4(chans, fused_plain_days=504, digests=False):
     """K4 against its plain version on the card on the 23 channels
     ``chans`` [S, B] within compose_strategies.check_parity's bounds (the
     plain loop and the kernel differ by float32 ulps of division and powf
     that flip borderline trades). The full run gives it the main path's own
-    channels, one parametric chunk of 16,384 trials x 7,560 days, and
-    compares channel mode, the main path's, over all of them. Fused-signals
-    mode (the first 7 channels) runs on no main path and is held bitwise to
-    K3 at 7,560 days by phase_general_vs_slab; against its plain version it
-    is compared over the first ``fused_plain_days`` days, since the plain
+    channels, one parametric chunk of 16,384 trials x 7,560 days, compares
+    channel mode, the main path's, over all of them, and with ``digests``
+    holds both modes (and a run with cashflows and no costs) bit for bit to
+    the first port's kernel (K4_DIGESTS_FIRST_PORT). Fused-signals mode
+    (the first 7 channels) runs on no main path and is held bitwise to K3
+    at 7,560 days by phase_general_vs_slab; against its plain version it is
+    compared over the first ``fused_plain_days`` days, since the plain
     loops are host-bound (~8-13 ms a day). Both modes are timed at the full
-    shape. Returns the record of the kernels line."""
+    shape, channel mode over 5 runs and on the first 4,096 trials (3).
+    Returns the record of the kernels line."""
     from letf_tpu_torch.ops import compose_strategies as k3
     from letf_tpu_torch.ops import strategies as k4
 
     S, B = chans[0].shape
     rec = {}
+    if digests:
+        got = k4_digests(chans)
+        assert got == K4_DIGESTS_FIRST_PORT, (
+            "K4 is not the first port's kernel bit for bit", got)
+        log("K4 output digests (channel, fused-signals, cashflows without "
+            "costs) equal the first port's")
     for fused in (False, True):
         cs = chans[:k4.N_FUSED] if fused else chans
-        ms, got = timed(lambda: k4.strategies_run(cs, fused_signals=fused),
-                        3)
+        ms_spread, got = spread(
+            lambda: k4.strategies_run(cs, fused_signals=fused), 5)
+        ms = ms_spread[1]
+        extra = {}
+        if not fused:
+            q = B // 4
+            cq = [c[:, :q].contiguous() for c in cs]
+            extra["quarter_ms_spread"], _ = spread(
+                lambda: k4.strategies_run(cq), 3)
+            del cq
         if fused:
             cs = [c[:fused_plain_days] for c in cs]
             got = k4.strategies_run(cs, fused_signals=True)
@@ -980,17 +1092,21 @@ def phase_k4(chans, fused_plain_days=504):
                              exact=())
         mdd_err = float((got[2] - ref[2]).abs().max())
         mode = "fused-signals" if fused else "channel"
+        quarter = (f" (at B={B // 4}: {fmt_spread(extra['quarter_ms_spread'])})"
+                   if extra else "")
         log(f"K4 strategies ({mode} mode) vs plain at B={B} "
             f"S={cs[0].shape[0]}: {st}, max drawdown max abs err "
-            f"{mdd_err:.3e}; kernel {ms:.3f} ms at S={S}, plain "
-            f"{plain_ms:.3f} ms at S={cs[0].shape[0]}")
+            f"{mdd_err:.3e}; kernel {fmt_spread(ms_spread)} over 5 runs at "
+            f"S={S}{quarter}, plain {plain_ms:.3f} ms at S={cs[0].shape[0]}")
         rec[mode] = dict(max_abs_err=st["max_abs_err"], ms=ms,
-                         plain_ms=plain_ms, plain_days=cs[0].shape[0])
+                         plain_ms=plain_ms, plain_days=cs[0].shape[0],
+                         ms_spread=ms_spread, **extra)
         del got, ref
     # Each channel read once, the 57 summaries written once.
     fused = with_bound(rec["fused-signals"], (k4.N_FUSED * S + 57) * B * 4,
                        OPS_PER_TRIAL_DAY["strategies_fused"] * S * B)
-    return with_bound(dict(rec["channel"], days=S, fused=fused),
+    return with_bound(dict(rec["channel"], days=S, fused=fused,
+                           digest_match=digests or None),
                       (len(chans) * S + 57) * B * 4,
                       OPS_PER_TRIAL_DAY["strategies"] * S * B)
 
@@ -1175,7 +1291,7 @@ def phase_parametric(model, model_t, counters):
     br, chans = parametric_breakdown(model_t)
     log(f"parametric chunk ({B_CHUNK} x {years}y) stage seconds: "
         + json.dumps(br))
-    rec = phase_k4(chans)
+    rec = phase_k4(chans, digests=True)
     del chans
     torch.cuda.empty_cache()
     return launches, rec

@@ -262,10 +262,14 @@ __device__ void strategy_role(Shared& sh, const Args& a, int lane, int b,
             stage[j][F_ETF + 2][lane], stage[j][F_ETF + 3][lane],
             stage[j][F_CASH][lane], stage[j][F_REG][lane], vix, cur,
             a.cf != nullptr ? a.cf[t] : 0.0f);
+        // IEEE division here: FastMath with its recompute (group_day, as
+        // K4 runs it) spills under K3's 72-register cap and took K3 from
+        // 50.6 to 63.8 ms (PERF.md, PR 6).
+        IeeeMath im;
         if (t == 0)
-          strategies_group<G, true>(st, c);
+          strategies_group<G, true>(st, c, im);
         else
-          strategies_group<G, false>(st, c);
+          strategies_group<G, false>(st, c, im);
         roll(st, vix, cur);
       }
     }

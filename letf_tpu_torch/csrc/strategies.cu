@@ -1,29 +1,51 @@
-// Kernel K4: the 19 strategies over precomputed channels, one thread per
-// trial, one pass over the days.
+// Kernel K4: the 19 strategies over precomputed channels.
 //
 // Replaces letf_tpu/ops/pallas_strategies.py::_strategy_kernel in its
 // channel modes (pallas_call at pallas_strategies.py:1081, entry
 // pallas_strategies_run), both of them:
-// - channel mode (FUSED = false): 23 [S, B] channels in CHANNELS order
+// - channel mode (the main path's): 23 [S, B] channels in CHANNELS order
 //   (r_tqqq, r_spy, r_sso, r_tmf, cash, regime, vix, then the 16 signals
 //   spy_price .. rsi14); the strategies read the signals at shift(1), i.e.
 //   yesterday's channel values carried in registers, and S7 today's;
-// - fused-signals mode (FUSED = true): only the first 7 channels; the 16
-//   signals are computed in the kernel from ring buffers (the same
-//   signals_read / signals_step as kernel K3).
+// - fused-signals mode: only the first 7 channels; the 16 signals are
+//   computed in the kernel from ring buffers (the same signals_read /
+//   signals_step as kernel K3).
 // The day math is strategies_day.cuh, shared with K3, so the strategies'
 // arithmetic is one copy. spy_price is a channel in channel mode (not
 // compounded here), as in the reference, so SMA compares see the same bits
 // as the signal pass that made it. The flush-to-zero ruin floor is kept.
 // The plain PyTorch version is ops/strategies.py::strategies_plain.
 //
-// What bounds it on the H100: the serial day recurrence (~1,200 flops and
-// 3 powf a day) with ~130 floats of live strategy state: latency-bound at
-// one thread per trial (16,384 trials are ~4 warps per SM). Channel mode
-// also reads 23 floats a trial-day (92 bytes, coalesced across a warp):
-// 11.4 GB for a 16,384 x 7,560 chunk, 3.4 ms at 3.35 TB/s, far under the
-// recurrence. Any trial count B is taken (the TPU's 1,024-trial tile is
-// gone). Only the 57 summary rows are written.
+// What bounds it on the H100 (chip_smoke.py and PERF.md's exploratory
+// split, an H100 80GB HBM3 at 700 W, 16,384 trials x 7,560 days). Channel
+// mode reads 23 floats a trial-day (11.4 GB: 3.4 ms at 3.35 TB/s) and
+// writes only the 57 summary rows. Its work is a serial day recurrence:
+// ~1,880 SASS instructions a day (44 divisions, 3 powf) over ~130 floats
+// of strategy state. The first port ran it on one thread per trial (233
+// registers, 32-thread blocks: ~4 warps an SM, one chain per scheduler) in
+// 38.4 ms, and as long on 4,096 trials: one chain's latency set the time.
+// Here, in channel mode:
+// - a block owns 32 trials (one a lane) and each of its 4 warps runs one
+//   strategy group over them (strategies_day.cuh's split: no strategy reads
+//   another's carries), keeping only that group's carries and shift(1)
+//   signals and loading only the channels its strategies read, straight
+//   from global memory (coalesced across the lanes). Four chains a trial,
+//   each a quarter of the day (352-460 instructions), 16 warps an SM;
+// - each group's divisions run by FastMath (fastmath.cuh: the compiler's
+//   fast sequences without their slow-path branches, which cut the chain),
+//   and a day whose operands fell out of FastMath's range is recomputed by
+//   IEEE from the saved carries (group_day), so the bits are the first
+//   port's.
+// The split alone took 38.4 ms to 17.0, FastMath to 14.9; staging the
+// channels in a block-wide cp.async ring (one barrier a tile) was slower
+// (15.6-16.5: the barrier ties each group to the slowest), and so was
+// staging them per lane or prefetching the next day (15.0-15.7). What is
+// left is each group's chain: on 4,096 trials (one block an SM) it takes
+// 13.1-13.9 ms, and the 16 warps of a 16,384-trial chunk add only ~10%.
+// Fused-signals mode runs on no main path and keeps the one-thread body
+// (strategies_step: the four groups in turn, each by group_day). Both modes
+// take any trial count B. chip_smoke.py holds both bitwise to the first
+// port's output digests.
 
 #include "strategies_day.cuh"
 
@@ -32,83 +54,152 @@ namespace {
 using namespace strategies_day;
 
 constexpr int NCH = 23;
+constexpr int NFUSED = 7;
+constexpr int THREADS = 32 * NGROUP;    // 128: a warp a strategy group
+constexpr int MIN_BLOCKS = 4;           // resident blocks an SM
 
-template <bool FUSED>
+// Launch arguments by value: the channel pointers sit in the parameter
+// bank, so a load's address is one multiply-add and holds no register.
+struct Args {
+  const float* ch[NCH];   // NFUSED of them in fused-signals mode
+  const float* cf;        // [S] or null
+  float* rings;           // fused-signals mode's [RING_ROWS, B] scratch
+  int S, B;
+  float* out;
+};
+
+// Day t's channels and cashflow for trial column bc.
+__device__ __forceinline__ void load_day(const Args& a, int t, int bc,
+                                         float* v, float& cft) {
+  const size_t at = (size_t)t * a.B + bc;
+#pragma unroll
+  for (int c = 0; c < NCH; ++c) v[c] = a.ch[c][at];
+  cft = a.cf != nullptr ? __ldg(a.cf + t) : 0.0f;
+}
+
+// Group G's strategies over the block's 32 trials, day by day, the next
+// day's channels loading while the day computes. The channels group G
+// does not read are dead loads and go. Lanes past B run on the last
+// trial's channels and store nothing.
+template <int G, bool COSTS>
+__device__ __forceinline__ void group_role(const float* K, const Args& a,
+                                           int b) {
+  const int bc = b < a.B ? b : a.B - 1;
+  StratState st;
+  init_strategies(st, K);
+  float v[NCH], cft;
+  load_day(a, 0, bc, v, cft);
+  for (int t = 0; t < a.S; ++t) {
+    float nv[NCH], ncft = 0.0f;
+    if (t + 1 < a.S) load_day(a, t + 1, bc, nv, ncft);
+    const DayCtx c = day_ctx(st, K, COSTS, t, v[0], v[1], v[2], v[3], v[4],
+                             v[5], v[6], v + 7, cft);
+    if (t == 0)
+      group_day<G, true>(st, c);
+    else
+      group_day<G, false>(st, c);
+    roll(st, v[6], v + 7);
+#pragma unroll
+    for (int i = 0; i < NCH; ++i) v[i] = nv[i];
+    cft = ncft;
+  }
+  if (b < a.B) {
+#pragma unroll
+    for (int i = 0; i < NS; ++i)
+      if (group_of(i) == G) store_strategy(st, i, a.out, b, a.B);
+  }
+}
+
+template <bool COSTS>
+__global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
+strategies_kernel(const Args a, const float* __restrict__ kc) {
+  __shared__ float K[NK_STRAT];
+  for (int i = threadIdx.x; i < NK_STRAT; i += THREADS) K[i] = kc[i];
+  __syncthreads();
+  const int b = blockIdx.x * 32 + (threadIdx.x & 31);
+  switch (threadIdx.x >> 5) {
+    case 0: group_role<0, COSTS>(K, a, b); break;
+    case 1: group_role<1, COSTS>(K, a, b); break;
+    case 2: group_role<2, COSTS>(K, a, b); break;
+    default: group_role<3, COSTS>(K, a, b); break;
+  }
+}
+
+// Fused-signals mode: one thread per trial, the signal rings in global
+// scratch, the four groups in turn.
 __global__ void __launch_bounds__(32)
-strategies_kernel(const float* __restrict__ cf, const float* __restrict__ kc,
-                  const float* const* __restrict__ chans, float* rings,
-                  int S, int B, int apply_costs, float* __restrict__ out) {
+strategies_fused_kernel(const Args a, const float* __restrict__ kc,
+                        int apply_costs) {
   __shared__ float K[NK_STRAT];
   for (int i = threadIdx.x; i < NK_STRAT; i += blockDim.x) K[i] = kc[i];
   __syncthreads();
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
+  if (b >= a.B) return;
 
-  const float* ch[NCH];
-#pragma unroll
-  for (int c = 0; c < (FUSED ? 7 : NCH); ++c) ch[c] = chans[c];
-  const Rings rg{rings, b, B};
+  const Rings rg{a.rings, b, a.B};
   StratState st;
   init_strategies(st, K);
   float sum[NSUM];
-  if constexpr (FUSED) init_signals(sum, rg);
+  init_signals(sum, rg);
   const bool costs = apply_costs != 0;
 
-  for (int t = 0; t < S; ++t) {
-    const size_t at = (size_t)t * B + b;
-    const float r_tqqq = ch[0][at], r_spy = ch[1][at], r_sso = ch[2][at];
-    const float r_tmf = ch[3][at], cashr = ch[4][at], reg = ch[5][at];
-    const float vix = ch[6][at];
-    const float cft = cf != nullptr ? cf[t] : 0.0f;
+  for (int t = 0; t < a.S; ++t) {
+    const size_t at = (size_t)t * a.B + b;
+    const float r_tqqq = a.ch[0][at], r_spy = a.ch[1][at];
+    const float r_sso = a.ch[2][at], r_tmf = a.ch[3][at];
+    const float cashr = a.ch[4][at], reg = a.ch[5][at], vix = a.ch[6][at];
+    const float cft = a.cf != nullptr ? a.cf[t] : 0.0f;
     float cur[NSIG];
-    if constexpr (FUSED) {
-      const RingIn rin = signals_read(rg, t);
-      if (t == 0)
-        signals_step<true>(sum, rg, t, st.psig[G_PRICE], r_tqqq, r_spy, rin,
-                           cur);
-      else
-        signals_step<false>(sum, rg, t, st.psig[G_PRICE], r_tqqq, r_spy, rin,
-                            cur);
-    } else {
-#pragma unroll
-      for (int i = 0; i < NSIG; ++i) cur[i] = ch[7 + i][at];
-    }
-    if (t == 0)
+    const RingIn rin = signals_read(rg, t);
+    if (t == 0) {
+      signals_step<true>(sum, rg, t, st.psig[G_PRICE], r_tqqq, r_spy, rin,
+                         cur);
       strategies_step<true>(st, K, costs, t, r_tqqq, r_spy, r_sso, r_tmf,
-                           cashr, reg, vix, cur, cft);
-    else
-      strategies_step<false>(st, K, costs, t, r_tqqq, r_spy, r_sso, r_tmf,
                             cashr, reg, vix, cur, cft);
+    } else {
+      signals_step<false>(sum, rg, t, st.psig[G_PRICE], r_tqqq, r_spy, rin,
+                          cur);
+      strategies_step<false>(st, K, costs, t, r_tqqq, r_spy, r_sso, r_tmf,
+                             cashr, reg, vix, cur, cft);
+    }
   }
-  store_summary(st, out, b, B);
+  store_summary(st, a.out, b, a.B);
 }
 
 }  // namespace
 
 // Registers, shared memory and resident blocks of the kernel in its
-// channel (fused = 0) or fused-signals mode at its launch shape.
+// channel (fused = 0, with costs) or fused-signals mode at its launch
+// shape.
 extern "C" int letf_info_strategies(int fused, int* out) {
-  return fused ? letf_fill_info((const void*)strategies_kernel<true>, 32, 0,
+  return fused ? letf_fill_info((const void*)strategies_fused_kernel, 32, 0,
                                 out)
-               : letf_fill_info((const void*)strategies_kernel<false>, 32, 0,
-                                out);
+               : letf_fill_info((const void*)strategies_kernel<true>,
+                                THREADS, 0, out);
 }
 
-// chans: device array of the channel pointers (23, or 7 when fused); rings
-// [RING_ROWS, B] scratch (fused only); out [57, B].
+// chans: a HOST array of the channel pointers (23, or 7 when fused);
+// rings [RING_ROWS, B] scratch (fused only); out [57, B].
 extern "C" int letf_strategies(const float* cf, const float* kc,
                                const float* const* chans, float* rings,
                                int S, int B, int apply_costs, int has_cf,
                                int fused, float* out, void* stream) {
-  const int threads = 32;
-  const int blocks = (B + threads - 1) / threads;
+  cudaStream_t st = (cudaStream_t)stream;
+  const int blocks = (B + 31) / 32;
   if (B > 0 && S > 0) {
+    Args a{};
+    for (int c = 0; c < (fused ? NFUSED : NCH); ++c) a.ch[c] = chans[c];
+    a.cf = has_cf ? cf : nullptr;
+    a.rings = rings;
+    a.S = S;
+    a.B = B;
+    a.out = out;
     if (fused)
-      strategies_kernel<true><<<blocks, threads, 0, (cudaStream_t)stream>>>(
-          has_cf ? cf : nullptr, kc, chans, rings, S, B, apply_costs, out);
+      strategies_fused_kernel<<<blocks, 32, 0, st>>>(a, kc, apply_costs);
+    else if (apply_costs)
+      strategies_kernel<true><<<blocks, THREADS, 0, st>>>(a, kc);
     else
-      strategies_kernel<false><<<blocks, threads, 0, (cudaStream_t)stream>>>(
-          has_cf ? cf : nullptr, kc, chans, rings, S, B, apply_costs, out);
+      strategies_kernel<false><<<blocks, THREADS, 0, st>>>(a, kc);
   }
   return (int)cudaGetLastError();
 }

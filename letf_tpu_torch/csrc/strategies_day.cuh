@@ -17,19 +17,26 @@
 // and settles them itself (settle / s6's own). So the 19 strategies fall
 // into NGROUP groups, strategies_group<G>, balanced by cost (S6's
 // leverage-drift turnover and the powf of S11, S14 and S15 are the heavy
-// ones): K4 runs the four groups in order on one thread (strategies_step),
-// K3 runs each group on a warp of its own. Every value is computed by the
-// same expression, in the same order, either way, so K3 and K4's
-// fused-signals mode stay bitwise equal. Likewise the signal pass is split
-// into its ring reads (signals_read) and the day's arithmetic, so that K3
-// can issue day t + 1's reads before day t's writes: a read is of a day at
-// least 5 back, never of the day before.
+// ones): K3 and K4's channel mode run each group on a warp of its own,
+// K4's fused-signals mode runs the four in order on one thread
+// (strategies_step). Every value is computed by the same expression, in
+// the same order, either way, so K3 and K4's fused-signals mode stay
+// bitwise equal. Likewise the signal pass is split into its ring reads
+// (signals_read) and the day's arithmetic, so that K3 can issue day t +
+// 1's reads before day t's writes: a read is of a day at least 5 back,
+// never of the day before.
+//
+// The strategies divide through a math policy M (fastmath.cuh): IeeeMath
+// is `/`; group_day runs a group's day by FastMath and again by IeeeMath
+// when FastMath's flag falls, the same bits without the slow-path branches
+// in the common case (K4). The signals divide and take square roots by
+// `/` and sqrtf.
 //
 // The plain PyTorch versions are ops/compose_strategies.py::signals_step
 // and ::strategies_step.
 #pragma once
 
-#include "common.cuh"
+#include "fastmath.cuh"
 
 namespace strategies_day {
 
@@ -247,10 +254,10 @@ struct DayCtx {
 // Strategy i's equity after the day's return, cashflow overlay, ruin floor,
 // trade count, running max, drawdown and allocation (every strategy but S6,
 // which settles in s6).
-template <bool FIRST>
+template <bool FIRST, class M>
 __device__ __forceinline__ void settle(StratState& st, int i, float ret,
                                        float traded, float pa_new,
-                                       float cft) {
+                                       float cft, M& m) {
   const float eq_new = ruin_floor(
       ((FIRST && i >= 3) ? st.eq[i] : st.eq[i] * (1.0f + ret)) + cft);
   if (FIRST) {
@@ -261,7 +268,7 @@ __device__ __forceinline__ void settle(StratState& st, int i, float ret,
   st.tr[i] = st.tr[i] + traded;
   const float rm_new = jmax(st.rm[i], eq_new);
   const float safe_rm = asel(f01(rm_new > 0.0f), jmax(rm_new, 1e-30f), 1.0f);
-  const float ddv = (eq_new - rm_new) / safe_rm;
+  const float ddv = m.div(eq_new - rm_new, safe_rm);
   st.dd[i] = jmax(st.dd[i], -ddv);
   st.rm[i] = rm_new;
   st.eq[i] = eq_new;
@@ -281,16 +288,18 @@ __device__ __forceinline__ void vol_family(const StratState& st,
 }
 
 // ---- S1-S3 benchmarks ----
-template <bool FIRST>
-__device__ __forceinline__ void s_bench(StratState& st, const DayCtx& c) {
+template <bool FIRST, class M>
+__device__ __forceinline__ void s_bench(StratState& st, const DayCtx& c,
+                                   M& m) {
   const float r[3] = {c.r_tqqq, c.r_spy, c.r_sso};
 #pragma unroll
-  for (int i = 0; i < 3; ++i) settle<FIRST>(st, i, r[i], 0.0f, st.pa[i], c.cft);
+  for (int i = 0; i < 3; ++i) settle<FIRST>(st, i, r[i], 0.0f, st.pa[i], c.cft, m);
 }
 
 // ---- S4/S5 SMA state machines ----
-template <bool FIRST>
-__device__ __forceinline__ void s_sma(StratState& st, const DayCtx& c) {
+template <bool FIRST, class M>
+__device__ __forceinline__ void s_sma(StratState& st, const DayCtx& c,
+                                   M& m) {
   const float* K = c.K;
   float new4, new5, flip4, flip5;
   if (FIRST) {
@@ -306,14 +315,14 @@ __device__ __forceinline__ void s_sma(StratState& st, const DayCtx& c) {
     new5 = asel(f01(st.pos5 == 1.0f), 1.0f - sell5, buy5);
     flip5 = f01(new5 != st.pos5);
   }
-  const float sma_cost = (K[K_SP0] + K[K_SPD] * c.reg) / 10000.0f
+  const float sma_cost = m.div(K[K_SP0] + K[K_SPD] * c.reg, 10000.0f)
                          + K[K_RCPD_LEV] * fabsf(c.r_tqqq);
   const float newp[2] = {new4, new5}, flip[2] = {flip4, flip5};
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     float ret_s = asel(newp[i], c.r_tqqq, c.cashr);
     if (c.costs) ret_s = ret_s - flip[i] * sma_cost;
-    settle<FIRST>(st, 3 + i, ret_s, flip[i], st.pa[3 + i], c.cft);
+    settle<FIRST>(st, 3 + i, ret_s, flip[i], st.pa[3 + i], c.cft, m);
   }
   if (!FIRST) {
     st.pos4 = new4;
@@ -322,26 +331,27 @@ __device__ __forceinline__ void s_sma(StratState& st, const DayCtx& c) {
 }
 
 // ---- S6 60/40 TQQQ/TMF with leverage-drift turnover ----
-template <bool FIRST>
-__device__ __forceinline__ void s6(StratState& st, const DayCtx& c) {
+template <bool FIRST, class M>
+__device__ __forceinline__ void s6(StratState& st, const DayCtx& c,
+                                   M& m) {
   const float* K = c.K;
   const int t = c.t;
   const float r_tqqq = c.r_tqqq, r_tmf = c.r_tmf;
   const float L6A = K[K_L6A], L6B = K[K_L6B];
   const float pg0 = st.s6p0 * (1.0f + r_tqqq);
   const float pg1 = st.s6p1 * (1.0f + r_tmf);
-  const float u6a = r_tqqq / L6A, u6b = r_tmf / L6B;
+  const float u6a = m.div(r_tqqq, L6A), u6b = m.div(r_tmf, L6B);
   const float den_a = 1.0f + L6A * u6a, den_b = 1.0f + L6B * u6b;
   const float ma = f01(fabsf(den_a) > 0.01f), mb = f01(fabsf(den_b) > 0.01f);
-  const float emb0 = asel(ma, L6A * (1.0f + u6a) / bsel(ma, den_a, 1.0f), L6A);
-  const float emb1 = asel(mb, L6B * (1.0f + u6b) / bsel(mb, den_b, 1.0f), L6B);
+  const float emb0 = asel(ma, m.div(L6A * (1.0f + u6a), bsel(ma, den_a, 1.0f)), L6A);
+  const float emb1 = asel(mb, m.div(L6B * (1.0f + u6b), bsel(mb, den_b, 1.0f)), L6B);
   const float total6 = pg0 + pg1;
   const float rebf = (t % 21 == 0 && t > 0) ? 1.0f : 0.0f;
-  const float inv_t6 = 1.0f / jmax(total6, 1e-30f);
+  const float inv_t6 = m.div(1.0f, jmax(total6, 1e-30f));
   const float cw0 = pg0 * inv_t6, cw1 = pg1 * inv_t6;
   const float w_turn = fabsf(cw0 - W6A) + fabsf(cw1 - W6B);
-  const float lev_turn = fabsf(emb0 - L6A) / L6A * cw0
-                         + fabsf(emb1 - L6B) / L6B * cw1;
+  const float lev_turn = m.div(fabsf(emb0 - L6A), L6A) * cw0
+                         + m.div(fabsf(emb1 - L6B), L6B) * cw1;
   const float tot_turn = w_turn + lev_turn;
   const float do_cost = c.costs ? rebf * f01(tot_turn > 0.01f) : 0.0f;
   const float total_after = asel(do_cost, total6 * (1.0f - tot_turn * K[K_RCPD]),
@@ -361,7 +371,7 @@ __device__ __forceinline__ void s6(StratState& st, const DayCtx& c) {
   }
   // The sleeves follow the cashflow overlay and the ruin floor.
   const float eq_new = ruin_floor(equity6 + c.cft);
-  const float s6_scale = eq_new / jmax(equity6, 1e-30f);
+  const float s6_scale = m.div(eq_new, jmax(equity6, 1e-30f));
   s6p0n = s6p0n * s6_scale;
   s6p1n = s6p1n * s6_scale;
   if (FIRST) {
@@ -371,7 +381,7 @@ __device__ __forceinline__ void s6(StratState& st, const DayCtx& c) {
     st.tr[5] = st.tr[5] + traded * 2.0f;
     const float rm_new = jmax(st.rm[5], eq_new);
     const float safe_rm = asel(f01(rm_new > 0.0f), jmax(rm_new, 1e-30f), 1.0f);
-    const float ddv = (eq_new - rm_new) / safe_rm;
+    const float ddv = m.div(eq_new - rm_new, safe_rm);
     st.dd[5] = jmax(st.dd[5], -ddv);
     st.rm[5] = rm_new;
     st.eq[5] = eq_new;
@@ -380,18 +390,20 @@ __device__ __forceinline__ void s6(StratState& st, const DayCtx& c) {
 }
 
 // ---- S7 vol targeting 20% (no cash on the idle fraction) ----
-template <bool FIRST>
-__device__ __forceinline__ void s7(StratState& st, const DayCtx& c) {
+template <bool FIRST, class M>
+__device__ __forceinline__ void s7(StratState& st, const DayCtx& c,
+                                   M& m) {
   float m7, ret, tr;
   const float v7 = guard(c.cur[G_STD20_MP20], 0.01f, 1.0f, &m7);
-  const float pos7 = asel(m7, jclip(0.20f / v7, 0.2f, 2.0f), 1.0f);
+  const float pos7 = asel(m7, jclip(m.div(0.20f, v7), 0.2f, 2.0f), 1.0f);
   vol_family(st, c, 6, pos7, false, ret, tr);
-  settle<FIRST>(st, 6, ret, tr, pos7, c.cft);
+  settle<FIRST>(st, 6, ret, tr, pos7, c.cft, m);
 }
 
 // ---- S8 composite regime (TQQQ / SPY / cash; no costs) ----
-template <bool FIRST>
-__device__ __forceinline__ void s8(StratState& st, const DayCtx& c) {
+template <bool FIRST, class M>
+__device__ __forceinline__ void s8(StratState& st, const DayCtx& c,
+                                   M& m) {
   float target8, ret, tr;
   if (FIRST) {
     target8 = st.pos8;
@@ -408,117 +420,126 @@ __device__ __forceinline__ void s8(StratState& st, const DayCtx& c) {
                asel(f01(target8 == 1.0f), c.r_spy, c.cashr));
     tr = f01(target8 != st.pos8);
   }
-  settle<FIRST>(st, 7, ret, tr, st.pa[7], c.cft);
+  settle<FIRST>(st, 7, ret, tr, st.pa[7], c.cft, m);
   if (!FIRST) st.pos8 = target8;
 }
 
 // ---- S9 adaptive vol target (skips NaN days entirely) ----
-template <bool FIRST>
-__device__ __forceinline__ void s9(StratState& st, const DayCtx& c) {
+template <bool FIRST, class M>
+__device__ __forceinline__ void s9(StratState& st, const DayCtx& c,
+                                   M& m) {
   const float v9r = c.prev[G_STD20_MP20], sma9 = c.prev[G_SMA200];
   const float ok9 = f01(v9r >= 0.001f) * f01(!isnan(sma9));
   const float target_v9 = asel(f01(c.pp > sma9), 0.35f, 0.12f);
   const float v9 = bsel(ok9, v9r, 1.0f);
-  const float alloc9 = asel(ok9, jclip(target_v9 / v9, 0.0f, 1.0f), st.pa[8]);
+  const float alloc9 = asel(ok9, jclip(m.div(target_v9, v9), 0.0f, 1.0f), st.pa[8]);
   float ret9, tr9;
   vol_family(st, c, 8, alloc9, true, ret9, tr9);
-  settle<FIRST>(st, 8, ret9 * ok9, tr9 * ok9, alloc9, c.cft);
+  settle<FIRST>(st, 8, ret9 * ok9, tr9 * ok9, alloc9, c.cft, m);
 }
 
 // ---- S10 Sortino (downside vol target) ----
-template <bool FIRST>
-__device__ __forceinline__ void s10(StratState& st, const DayCtx& c) {
+template <bool FIRST, class M>
+__device__ __forceinline__ void s10(StratState& st, const DayCtx& c,
+                                   M& m) {
   float m10, ret, tr;
   const float dv10 = guard(c.prev[G_DSTD20_MP20], 0.001f, 1.0f, &m10);
-  const float alloc10 = asel(m10, jclip(0.15f / dv10, 0.0f, 1.5f), 1.0f);
+  const float alloc10 = asel(m10, jclip(m.div(0.15f, dv10), 0.0f, 1.5f), 1.0f);
   vol_family(st, c, 9, alloc10, true, ret, tr);
-  settle<FIRST>(st, 9, ret, tr, alloc10, c.cft);
+  settle<FIRST>(st, 9, ret, tr, alloc10, c.cft, m);
 }
 
 // ---- S11 hyper-convex ----
-template <bool FIRST>
-__device__ __forceinline__ void s11(StratState& st, const DayCtx& c) {
+template <bool FIRST, class M>
+__device__ __forceinline__ void s11(StratState& st, const DayCtx& c,
+                                   M& m) {
   float ret, tr;
   const float v11 = guard(c.prev[G_STD20], 0.001f, 0.5f);
-  float alloc11 = 0.25f / v11;
+  float alloc11 = m.div(0.25f, v11);
   alloc11 = asel(f01(c.pp > c.prev[G_SMA200_MP1]), powf(alloc11, 1.2f),
                  alloc11);
   alloc11 = jclip(alloc11, 0.0f, 1.0f);
   vol_family(st, c, 10, alloc11, true, ret, tr);
-  settle<FIRST>(st, 10, ret, tr, alloc11, c.cft);
+  settle<FIRST>(st, 10, ret, tr, alloc11, c.cft, m);
 }
 
 // ---- S12 vol velocity (max of fast/slow vols) ----
-template <bool FIRST>
-__device__ __forceinline__ void s12(StratState& st, const DayCtx& c) {
+template <bool FIRST, class M>
+__device__ __forceinline__ void s12(StratState& st, const DayCtx& c,
+                                   M& m) {
   float ret, tr;
   const float v12 = guard(jmax(c.prev[G_STD20], c.prev[G_STD5]), 0.001f, 0.5f);
-  const float alloc12 = jclip(0.22f / v12, 0.0f, 1.0f);
+  const float alloc12 = jclip(m.div(0.22f, v12), 0.0f, 1.0f);
   vol_family(st, c, 11, alloc12, true, ret, tr);
-  settle<FIRST>(st, 11, ret, tr, alloc12, c.cft);
+  settle<FIRST>(st, 11, ret, tr, alloc12, c.cft, m);
 }
 
 // ---- S13 vol-of-vol momentum ----
-template <bool FIRST>
-__device__ __forceinline__ void s13(StratState& st, const DayCtx& c) {
+template <bool FIRST, class M>
+__device__ __forceinline__ void s13(StratState& st, const DayCtx& c,
+                                   M& m) {
   float ret, tr;
   const float v13 = guard(c.prev[G_STD20], 0.001f, 0.5f);
   const float vm13 = c.prev[G_VOLMOM5];
-  float alloc13 = 0.25f / v13;
+  float alloc13 = m.div(0.25f, v13);
   alloc13 = asel(f01(vm13 < -0.10f), alloc13 * 1.2f, alloc13);
   alloc13 = asel(f01(vm13 > 0.10f), alloc13 * 0.7f, alloc13);
   alloc13 = jclip(alloc13, 0.0f, 1.0f);
   vol_family(st, c, 12, alloc13, true, ret, tr);
-  settle<FIRST>(st, 12, ret, tr, alloc13, c.cft);
+  settle<FIRST>(st, 12, ret, tr, alloc13, c.cft, m);
 }
 
 // ---- S14 skewness-adjusted convex ----
-template <bool FIRST>
-__device__ __forceinline__ void s14(StratState& st, const DayCtx& c) {
+template <bool FIRST, class M>
+__device__ __forceinline__ void s14(StratState& st, const DayCtx& c,
+                                   M& m) {
   float ret, tr;
   const float v14 = guard(c.prev[G_STD20], 0.001f, 0.5f);
   const float sk = c.prev[G_SKEW60];
-  float alloc14 = 0.25f / v14;
+  float alloc14 = m.div(0.25f, v14);
   alloc14 = asel(f01(sk > 0.0f), powf(alloc14, 1.3f), alloc14);
   alloc14 = asel(f01(sk < -0.5f), alloc14 * 0.5f, alloc14);
   alloc14 = jclip(alloc14, 0.0f, 1.0f);
   vol_family(st, c, 13, alloc14, true, ret, tr);
-  settle<FIRST>(st, 13, ret, tr, alloc14, c.cft);
+  settle<FIRST>(st, 13, ret, tr, alloc14, c.cft, m);
 }
 
 // ---- S15 meta-ensemble ----
-template <bool FIRST>
-__device__ __forceinline__ void s15(StratState& st, const DayCtx& c) {
+template <bool FIRST, class M>
+__device__ __forceinline__ void s15(StratState& st, const DayCtx& c,
+                                   M& m) {
   float ret, tr;
   const float* prev = c.prev;
   const float dv15 = guard(prev[G_DSTD20], 0.001f, 0.25f);
-  float alloc15 = 0.28f / dv15;
+  float alloc15 = m.div(0.28f, dv15);
   alloc15 = asel(f01(c.pp > prev[G_SMA200_MP1]), powf(alloc15, 1.2f),
                  alloc15);
   const float brake15 = f01(prev[G_STD5] > 1.5f * prev[G_STD20]);
   alloc15 = asel(brake15, alloc15 * 0.5f, alloc15);
   alloc15 = jclip(alloc15, 0.0f, 1.0f);
   vol_family(st, c, 14, alloc15, true, ret, tr);
-  settle<FIRST>(st, 14, ret, tr, alloc15, c.cft);
+  settle<FIRST>(st, 14, ret, tr, alloc15, c.cft, m);
 }
 
 // ---- S16 crisis alpha (regime asymmetric) ----
-template <bool FIRST>
-__device__ __forceinline__ void s16(StratState& st, const DayCtx& c) {
+template <bool FIRST, class M>
+__device__ __forceinline__ void s16(StratState& st, const DayCtx& c,
+                                   M& m) {
   float ret, tr;
-  const float vr16 = c.prev[G_STD5] / c.prev[G_STD60];
+  const float vr16 = m.div(c.prev[G_STD5], c.prev[G_STD60]);
   const float crisis16 = jmin(f01(c.vix > 25.0f) + f01(vr16 > 1.5f), 1.0f);
   const float target16 = asel(crisis16, 0.08f, 0.30f);
   float m16;
   const float rv16 = guard(c.prev[G_STD5], 0.001f, 1.0f, &m16);
-  const float alloc16 = asel(m16, jclip(target16 / rv16, 0.0f, 1.2f), 0.5f);
+  const float alloc16 = asel(m16, jclip(m.div(target16, rv16), 0.0f, 1.2f), 0.5f);
   vol_family(st, c, 15, alloc16, true, ret, tr);
-  settle<FIRST>(st, 15, ret, tr, alloc16, c.cft);
+  settle<FIRST>(st, 15, ret, tr, alloc16, c.cft, m);
 }
 
 // ---- S17 tail-risk optimizer (skew-aware Kelly) ----
-template <bool FIRST>
-__device__ __forceinline__ void s17(StratState& st, const DayCtx& c) {
+template <bool FIRST, class M>
+__device__ __forceinline__ void s17(StratState& st, const DayCtx& c,
+                                   M& m) {
   float ret, tr;
   const float* prev = c.prev;
   const float vol17 = guard(prev[G_STD20], 0.001f, 0.25f);
@@ -534,17 +555,18 @@ __device__ __forceinline__ void s17(StratState& st, const DayCtx& c) {
   const float pen17 = asel(sneg5, 0.6f,
                            asel(sneg0, 0.8f, asel(spos5, 1.2f, 1.0f)));
   const float kelly17 = asel(f01(eff17 > 0.01f),
-                             jclip((mean17 - 0.03f) / (eff17 * eff17) * 0.7f,
+                             jclip(m.div(mean17 - 0.03f, eff17 * eff17) * 0.7f,
                                    0.2f, 2.0f), 1.0f);
-  const float alloc17 = jclip((0.30f / eff17) * pen17 * (kelly17 / 1.5f),
+  const float alloc17 = jclip(m.div(0.30f, eff17) * pen17 * m.div(kelly17, 1.5f),
                               0.0f, 1.5f);
   vol_family(st, c, 16, alloc17, true, ret, tr);
-  settle<FIRST>(st, 16, ret, tr, alloc17, c.cft);
+  settle<FIRST>(st, 16, ret, tr, alloc17, c.cft, m);
 }
 
 // ---- S18 momentum-vol convergence ----
-template <bool FIRST>
-__device__ __forceinline__ void s18(StratState& st, const DayCtx& c) {
+template <bool FIRST, class M>
+__device__ __forceinline__ void s18(StratState& st, const DayCtx& c,
+                                   M& m) {
   float ret, tr;
   const float* prev = c.prev;
   const float mom18 = bsel(f01(!isnan(prev[G_SUM126])), prev[G_SUM126], 0.0f);
@@ -552,19 +574,20 @@ __device__ __forceinline__ void s18(StratState& st, const DayCtx& c) {
   const float vs18 = guard(prev[G_STD60], 0.001f, 0.25f);
   const float mm18 = asel(f01(mom18 > 0.05f), 1.3f,
                           asel(f01(mom18 > 0.0f), 1.0f, 0.5f));
-  const float vr18 = vf18 / vs18;
+  const float vr18 = m.div(vf18, vs18);
   const float out_band = jmin(f01(vr18 < 0.8f) + f01(vr18 > 1.3f), 1.0f);
   const float vm18 = asel(f01(vr18 < 0.8f), 1.2f,
                           asel(f01(vr18 > 1.3f), 0.6f, 1.0f));
   const float eff18 = asel(out_band, vf18, vs18);
-  const float alloc18 = jclip(0.28f * mm18 * vm18 / eff18, 0.0f, 1.5f);
+  const float alloc18 = jclip(m.div(0.28f * mm18 * vm18, eff18), 0.0f, 1.5f);
   vol_family(st, c, 17, alloc18, true, ret, tr);
-  settle<FIRST>(st, 17, ret, tr, alloc18, c.cft);
+  settle<FIRST>(st, 17, ret, tr, alloc18, c.cft, m);
 }
 
 // ---- S19 conviction compounder (5% rebalance threshold) ----
-template <bool FIRST>
-__device__ __forceinline__ void s19(StratState& st, const DayCtx& c) {
+template <bool FIRST, class M>
+__device__ __forceinline__ void s19(StratState& st, const DayCtx& c,
+                                   M& m) {
   const float* prev = c.prev;
   const float mom19 = bsel(f01(!isnan(prev[G_SUM126])), prev[G_SUM126], 0.0f);
   const float dv19 = guard(prev[G_DSTD20], 0.001f, 0.20f);
@@ -574,36 +597,54 @@ __device__ __forceinline__ void s19(StratState& st, const DayCtx& c) {
                                asel(f01(mom19 > 0.05f), 0.7f,
                                     asel(f01(mom19 > 0.0f), 0.4f, 0.0f)));
   const float trend_score = f01(c.pp > prev[G_SMA100_MP1]) * 0.5f;
-  const float vr19 = vf19 / vs19;
+  const float vr19 = m.div(vf19, vs19);
   const float vol_score = asel(f01(vr19 < 0.9f), 0.5f,
                                asel(f01(vr19 < 1.2f), 0.3f, 0.0f));
   const float conviction = mom_score + trend_score + vol_score;
-  const float cand19 = jclip((0.32f / dv19) * (0.3f + conviction * 0.55f),
+  const float cand19 = jclip(m.div(0.32f, dv19) * (0.3f + conviction * 0.55f),
                              0.0f, 1.5f);
   const float turn19 = fabsf(cand19 - st.pa[18]);
   const float rebal19 = f01(turn19 > 0.05f);
   const float alloc19 = asel(rebal19, cand19, st.pa[18]);
   float ret19 = alloc19 * c.r_tqqq + (1.0f - alloc19) * c.cashr;
   if (c.costs) ret19 = ret19 - rebal19 * turn19 * SPREAD;
-  settle<FIRST>(st, 18, ret19, rebal19, alloc19, c.cft);
+  settle<FIRST>(st, 18, ret19, rebal19, alloc19, c.cft, m);
 }
 
-// One day of group G's strategies (group_of), each settled in turn.
-template <int G, bool FIRST>
+// One day of group G's strategies (group_of), each settled in turn,
+// dividing by m.
+template <int G, bool FIRST, class M>
 __device__ __forceinline__ void strategies_group(StratState& st,
-                                                 const DayCtx& c) {
+                                                 const DayCtx& c, M& m) {
   if constexpr (G == 0) {
-    s_bench<FIRST>(st, c); s_sma<FIRST>(st, c); s6<FIRST>(st, c);
+    s_bench<FIRST>(st, c, m); s_sma<FIRST>(st, c, m); s6<FIRST>(st, c, m);
   } else if constexpr (G == 1) {
-    s7<FIRST>(st, c); s8<FIRST>(st, c); s9<FIRST>(st, c); s10<FIRST>(st, c);
-    s11<FIRST>(st, c);
+    s7<FIRST>(st, c, m); s8<FIRST>(st, c, m); s9<FIRST>(st, c, m); s10<FIRST>(st, c, m);
+    s11<FIRST>(st, c, m);
   } else if constexpr (G == 2) {
-    s12<FIRST>(st, c); s13<FIRST>(st, c); s14<FIRST>(st, c);
-    s16<FIRST>(st, c);
+    s12<FIRST>(st, c, m); s13<FIRST>(st, c, m); s14<FIRST>(st, c, m);
+    s16<FIRST>(st, c, m);
   } else {
-    s15<FIRST>(st, c); s17<FIRST>(st, c); s18<FIRST>(st, c);
-    s19<FIRST>(st, c);
+    s15<FIRST>(st, c, m); s17<FIRST>(st, c, m); s18<FIRST>(st, c, m);
+    s19<FIRST>(st, c, m);
   }
+}
+
+// One day of group G by FastMath, and by IeeeMath again from the saved
+// carries if an operand fell out of FastMath's range (fastmath.cuh), so
+// the bits are IeeeMath's either way. c.prev points at st's shift(1)
+// signals, which no group writes.
+template <int G, bool FIRST>
+__device__ __forceinline__ void group_day(StratState& st, const DayCtx& c) {
+  StratState n = st;
+  FastMath fm;
+  strategies_group<G, FIRST>(n, c, fm);
+  if (!fm.ok) {
+    n = st;
+    IeeeMath im;
+    strategies_group<G, FIRST>(n, c, im);
+  }
+  st = n;
 }
 
 __device__ __forceinline__ DayCtx day_ctx(const StratState& st,
@@ -637,10 +678,10 @@ __device__ __forceinline__ void strategies_step(StratState& st, const float* K,
                                                float cft) {
   const DayCtx c = day_ctx(st, K, apply_costs, t, r_tqqq, r_spy, r_sso,
                            r_tmf, cashr, reg, vix, cur, cft);
-  strategies_group<0, FIRST>(st, c);
-  strategies_group<1, FIRST>(st, c);
-  strategies_group<2, FIRST>(st, c);
-  strategies_group<3, FIRST>(st, c);
+  group_day<0, FIRST>(st, c);
+  group_day<1, FIRST>(st, c);
+  group_day<2, FIRST>(st, c);
+  group_day<3, FIRST>(st, c);
   roll(st, vix, cur);
 }
 

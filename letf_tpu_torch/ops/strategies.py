@@ -19,6 +19,8 @@ max_dd [B, 19])`` float32. ``strategies_run`` launches
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from letf_tpu_torch import config as cfg
@@ -105,14 +107,16 @@ def strategies_run(channels, cashflows=None, apply_costs: bool = True,
         raise ValueError(f"strategies_run: cashflows {tuple(cf.shape)}")
     kc = torch.tensor(k3.strategy_consts(), dtype=torch.float64).to(
         device=dev, dtype=torch.float32)
-    ptrs = torch.tensor([c.data_ptr() for c in channels], dtype=torch.int64,
-                        device=dev)
+    # The channel pointers go in by value (a host array; the kernel takes
+    # them as launch arguments).
+    ptrs = (ctypes.c_void_p * n)(*[c.data_ptr() for c in channels])
     rings = (torch.empty((k3.RING_ROWS, B), dtype=torch.float32, device=dev)
              if fused_signals else None)
     out = torch.empty((3 * NS, B), dtype=torch.float32, device=dev)
     rc = _build.library().letf_strategies(
         cf.data_ptr() if cf is not None else None, kc.data_ptr(),
-        ptrs.data_ptr(), rings.data_ptr() if rings is not None else None,
+        ctypes.cast(ptrs, ctypes.c_void_p),
+        rings.data_ptr() if rings is not None else None,
         S, B, int(apply_costs), int(cf is not None), int(fused_signals),
         out.data_ptr(), _build.stream_of(channels[0]))
     _build.check(rc, "letf_strategies")

@@ -8,7 +8,8 @@ equal distance) becomes the replacement and is used up; the disallowed loss
 is loss * min(1, replacement shares / sold shares).
 
 Layout ``[S, B]`` (days first, trials contiguous). ``wash_matching``
-launches ``csrc/wash.cu`` on CUDA tensors and runs ``wash_plain`` on CPU
+launches ``csrc/wash.cu`` on CUDA tensors (day bitsets, a per-trial walk
+over the loss days, a coalesced epilogue) and runs ``wash_plain`` on CPU
 ones; both return (disallowed [S, B], rep_off [S, B] int32 in [-30, 30],
 has [S, B] bool), bitwise equal.
 """
@@ -74,9 +75,11 @@ def wash_matching(loss, sell_sh, buy_q):
     dis = torch.empty_like(loss)
     rep_off = torch.empty((S, B), dtype=torch.int32, device=dev)
     has = torch.empty((S, B), dtype=torch.uint8, device=dev)
+    # The eligible-buy and loss-day bitsets, [2, ceil(S / 32), B] words.
+    bits = torch.empty((2, -(-S // 32), B), dtype=torch.int32, device=dev)
     rc = _build.library().letf_wash(
         loss.data_ptr(), sell_sh.data_ptr(), buy_q.data_ptr(), S, B,
-        dis.data_ptr(), rep_off.data_ptr(), has.data_ptr(),
+        dis.data_ptr(), rep_off.data_ptr(), has.data_ptr(), bits.data_ptr(),
         _build.stream_of(loss))
     _build.check(rc, "letf_wash")
     LAUNCHES += 1

@@ -108,6 +108,23 @@ def _engine_mode(engine_mode: Optional[str], bootstrap_pools=None,
     return engine_mode
 
 
+def _check_single_device(mesh=None, checkpoint_dir=None, resume=False,
+                         max_chunks=None, fault_tolerant=False) -> None:
+    """Raise for the reference's runner arguments the port does not run
+    yet: a device mesh, checkpoint/resume, a chunk budget and the chunk
+    containment."""
+    asked = [name for name, on in (
+        ("mesh", mesh is not None),
+        ("checkpoint_dir", checkpoint_dir is not None),
+        ("resume", bool(resume)), ("max_chunks", max_chunks is not None),
+        ("fault_tolerant", bool(fault_tolerant))) if on]
+    if asked:
+        raise NotImplementedError(
+            f"{', '.join(asked)}: multi-device runs, checkpoint/resume, "
+            "max_chunks and the chunk containment are not ported yet: "
+            "ROADMAP section 1 item 17")
+
+
 class _Run:
     """Resolved configuration of one run (the head of run_monte_carlo /
     monte_carlo_report); the defaults are those entries' defaults."""
@@ -199,17 +216,30 @@ def general_chunk(run: "_Run", ids, anti, apply_costs: bool = True,
 
 def run_monte_carlo(model: SimModel | Dict | None, time_horizon: float,
                     num_simulations: Optional[int] = None, seed: int = 0,
-                    chunk_size: Optional[int] = None,
+                    chunk_size: Optional[int] = None, mesh=None,
                     use_antithetic: Optional[bool] = None,
                     random_start_method: Optional[str] = None,
-                    apply_costs: bool = True, progress: bool = False,
+                    apply_costs: bool = True, progress: bool = True,
                     engine_mode: Optional[str] = None,
                     bootstrap_pools=None, cashflows=None, anchors=None,
+                    checkpoint_dir: Optional[str] = None,
+                    resume: bool = False, max_chunks: Optional[int] = None,
+                    chunks_per_dispatch: Optional[int] = None,
+                    fault_tolerant: bool = False,
+                    chunk_timeout: Optional[float] = 300.0,
+                    chunk_retries: int = 1, *,
                     device="cuda") -> MCArrays:
     """N trials of ``time_horizon`` years through the chunk of the engine
     mode on ``device``, in chunks of ``chunk_size`` trials; host summary
     arrays. Trade emission is ``emit_trade_lists``'s, as in the JAX
-    package."""
+    package. The parameters are the reference's, in its order;
+    ``chunks_per_dispatch`` is a no-op on one device (each chunk is one
+    host-loop step), ``chunk_timeout`` and ``chunk_retries`` act only
+    under ``fault_tolerant``, which raises with ``mesh``,
+    ``checkpoint_dir``, ``resume`` and ``max_chunks``
+    (``_check_single_device``)."""
+    _check_single_device(mesh, checkpoint_dir, resume, max_chunks,
+                         fault_tolerant)
     mode = _engine_mode(engine_mode, bootstrap_pools)
     run = _Run(model, time_horizon, num_simulations, seed, chunk_size,
                use_antithetic, random_start_method, apply_costs,
@@ -285,6 +315,7 @@ def reduce_report(fw, mdd, nt, valid, repaired, path_finite, vix_ok,
 def monte_carlo_report(model: SimModel | Dict | None, time_horizon: float,
                        num_simulations: Optional[int] = None, seed: int = 0,
                        chunk_size: Optional[int] = None,
+                       chunks_per_dispatch: Optional[int] = None,
                        use_antithetic: Optional[bool] = None,
                        random_start_method: Optional[str] = None,
                        apply_costs: bool = True,
@@ -292,7 +323,8 @@ def monte_carlo_report(model: SimModel | Dict | None, time_horizon: float,
                        anchors=None,
                        percentiles=(10, 25, 40, 50, 60, 75, 90),
                        tax_config: Optional[Dict] = None,
-                       tax_mode: str = "sampled", device="cuda",
+                       tax_mode: str = "sampled", mesh=None, *,
+                       device="cuda",
                        stage_seconds: Optional[Dict] = None) -> Dict:
     """The production percentile report on ``device``: N trials in whole
     chunks (the trial axis is cut to N before the reductions), the [N, 19]
@@ -300,7 +332,10 @@ def monte_carlo_report(model: SimModel | Dict | None, time_horizon: float,
     ``tax_mode="sampled"`` (the default) adds the post-tax tables of the
     13 taxable strategies under ``strategies[sid]["post_tax"]`` and
     ``post_tax_seconds``, ``tax_mode`` and ``tax_config`` at the top
-    level; ``"none"`` is the pre-tax report alone."""
+    level; ``"none"`` is the pre-tax report alone. The parameters are the
+    reference's, in its order; ``chunks_per_dispatch`` is a no-op on one
+    device and a non-None ``mesh`` raises."""
+    _check_single_device(mesh)
     mode = _engine_mode(engine_mode, tax_mode=tax_mode)
     run = _Run(model, time_horizon, num_simulations, seed, chunk_size,
                use_antithetic, random_start_method, apply_costs,

@@ -400,6 +400,65 @@ def test_wash_kernel_bitwise(dev):
         assert torch.equal(a, b)
 
 
+def wash_edge_case(name, S, B, seed):
+    """[S, B] float32 (loss, sell, buy) of one K8 edge case (the CPU tests'
+    cases in tests/test_torch_wash.py, at any trial count)."""
+    rs = np.random.default_rng(seed)
+    p_buy, p_loss = {"every_day_a_loss": (0.25, 1.0),
+                     "buys_every_day": (1.0, 0.4)}.get(name, (0.25, 0.1))
+    buy = np.where(rs.random((S, B)) < p_buy, rs.gamma(2.0, 3.0, (S, B)), 0.0)
+    sell = rs.gamma(2.0, 4.0, (S, B))
+    loss = np.where(rs.random((S, B)) < p_loss, rs.gamma(2.0, 50.0, (S, B)),
+                    0.0)
+    at = np.float32(0.001)
+    if name == "buys_at_the_threshold":
+        pick = rs.integers(0, 3, (S, B))
+        buy = np.where(pick == 0, at,
+                       np.where(pick == 1, np.nextafter(at, np.inf), 0.0))
+    elif name == "first_and_last_day_losses":
+        loss[:] = 0.0
+        loss[[0, S - 1]] = 50.0
+        buy[:] = 0.0
+        buy[[1, 30, 31, S - 2, S - 31, S - 32]] = 2.0
+    elif name == "equal_distance_ties":
+        loss[:] = 0.0
+        buy[:] = 0.0
+        for b in range(B):
+            d, k = 32 + b % 40, 1 + b % 31
+            loss[[d, d + 1], b] = (10.0, 20.0)
+            buy[[d - k, d + k], b] = (1.0, 100.0)
+    elif name == "ring_slot_reuse":
+        loss[:] = 0.0
+        buy[:] = 0.0
+        for b in range(B):
+            x = b % 60
+            buy[[x, x + 64], b] = 3.0
+            loss[[x + 1, x + 34], b] = 7.0
+    return [torch.as_tensor(a, dtype=torch.float32) for a in (loss, sell, buy)]
+
+
+WASH_EDGE = {"one_day": 1, "shorter_than_the_window": 45, "ragged_days": 97,
+             "every_day_a_loss": 150, "buys_every_day": 97,
+             "buys_at_the_threshold": 97, "first_and_last_day_losses": 97,
+             "equal_distance_ties": 150, "ring_slot_reuse": 150}
+
+
+@pytest.mark.parametrize("n_trials", [1, 33, 650])
+@pytest.mark.parametrize("case", sorted(WASH_EDGE))
+def test_wash_kernel_bitwise_edge_cases(dev, case, n_trials):
+    """K8's day bitsets, loss-day walk and epilogue bitwise its plain
+    version on the CPU tests' edge cases at 1, 33 and 650 trials."""
+    from letf_tpu_torch.ops import wash
+
+    args = [a.to(dev) for a in wash_edge_case(case, WASH_EDGE[case],
+                                              n_trials, 12)]
+    n0 = wash.LAUNCHES
+    got = wash.wash_matching(*args)
+    assert wash.LAUNCHES == n0 + 1
+    for a, b in zip(got, wash.wash_plain(*args)):
+        assert torch.equal(a, b)
+
+
 def test_emitting_engine_refuses_without_emission_on_the_card(dev):
     """Without emission the engine is kernel K4 on the card (one launch),
     never the plain loop; its summaries agree with the emitting engine's
@@ -450,10 +509,60 @@ def test_strategies_kernel_matches_plain(dev, fused, with_cashflows):
     k3.check_parity(dict(zip(names, got)), dict(zip(names, ref)))
 
 
+@pytest.mark.parametrize("cashflows,apply_costs", [(False, True),
+                                                 (True, False)])
+@pytest.mark.parametrize("n_trials,days", [(1, 1), (31, 7), (33, 100),
+                                           (100, 21), (650, 13)])
+def test_strategies_kernel_ragged_shapes(dev, n_trials, days, cashflows,
+                                         apply_costs):
+    """K4's channel mode (a block of four group warps over 32 trials, an
+    8-day staged tile; 16-byte copies when B is a multiple of 4, else 4-byte
+    ones) at ragged trial and day counts against its plain version."""
+    from letf_tpu_torch.ops import rng
+    from letf_tpu_torch.ops import strategies as k4
+    from letf_tpu_torch.ops.path_batched import generate_paths_batched
+    from letf_tpu_torch.strategies.signals import compute_signals
+
+    mt = tparams.from_numpy(default_sim_model(), dev, torch.float32)
+    rows = torch.arange(n_trials, device=dev)
+    path = generate_paths_batched(mt, rng.key(5, dev), rows // 2,
+                                  rows % 2 == 1, sim_days=126,
+                                  buffer_days=126)
+    chans = [c[:days] for c in k4.channels_from(path, compute_signals(path))]
+    cf = (((torch.arange(days, device=dev) % 5 == 0) * 400.0
+           - (torch.arange(days, device=dev) % 7 == 6) * 900.0).float()
+          if cashflows else None)
+    n0 = k4.LAUNCHES
+    got = k4.strategies_run(chans, cashflows=cf, apply_costs=apply_costs)
+    assert k4.LAUNCHES == n0 + 1
+    ref = k4.strategies_plain(chans, cashflows=cf, apply_costs=apply_costs)
+    names = ("final_wealth", "num_trades", "max_dd")
+    for g, r in zip(got, ref):
+        assert g.shape == r.shape == (n_trials, 19)
+    k3.check_parity(dict(zip(names, got)), dict(zip(names, ref)))
+
+
+def test_strategies_kernel_matches_first_port_digests(dev):
+    """K4 bit for bit the first port's kernel on the parametric chunk's
+    channels (16,384 x 7,560): chip_smoke.K4_DIGESTS_FIRST_PORT, in
+    channel mode, fused-signals mode and with cashflows and no costs."""
+    import importlib.util
+    from pathlib import Path
+
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parent.parent / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    mt = tparams.from_numpy(default_sim_model(), dev, torch.float32)
+    _, chans = smoke.parametric_breakdown(mt)
+    assert smoke.k4_digests(chans) == smoke.K4_DIGESTS_FIRST_PORT
+
+
 def test_kernel_info_reports_every_kernel(dev):
     """letf_kernel_info: every kernel of the library fits on an SM at its
-    launch shape; K3 keeps more than 4 warps resident an SM, and K1 at
-    least 12 (4 blocks of one recurrence and three draw warps) without
+    launch shape; K3 keeps more than 4 warps resident an SM, K1 at least
+    12 (4 blocks of one recurrence and three draw warps) and K4's channel
+    mode at least 16 (4 blocks of four strategy-group warps), both without
     spilling."""
     from letf_tpu_torch.ops import _build
 
@@ -464,6 +573,8 @@ def test_kernel_info_reports_every_kernel(dev):
     assert info["compose_strategies"]["warps_per_sm"] > 4, info
     assert info["joint"]["warps_per_sm"] >= 12, info
     assert info["joint"]["local_bytes"] == 0, info
+    assert info["strategies"]["warps_per_sm"] >= 16, info
+    assert info["strategies"]["local_bytes"] == 0, info
 
 
 def test_gbm_kernel_matches_plain(dev):

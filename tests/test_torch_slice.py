@@ -148,7 +148,8 @@ def test_unported_modes_raise(model):
     test_torch_parametric_report.py; the sampled default:
     tests/test_torch_sampled_report.py); trade emission is
     emit_trade_lists', not a run_monte_carlo argument, as in the JAX
-    package; an unknown engine mode is a ValueError."""
+    package; an unknown engine mode is a ValueError; a mesh, checkpoint/
+    resume, max_chunks and fault_tolerant raise naming item 17."""
     with pytest.raises(NotImplementedError, match="ROADMAP.*item 13"):
         mc_runner.monte_carlo_report(model, 1, num_simulations=8,
                                      device="cpu", tax_mode="exact_all")
@@ -164,3 +165,12 @@ def test_unported_modes_raise(model):
     with pytest.raises(ValueError, match="engine_mode"):
         mc_runner.run_monte_carlo(model, 1, num_simulations=8,
                                   engine_mode="bootstrap", device="cpu")
+    for arg, value in (("mesh", object()), ("checkpoint_dir", "ckpt"),
+                       ("resume", True), ("max_chunks", 1),
+                       ("fault_tolerant", True)):
+        with pytest.raises(NotImplementedError, match="ROADMAP.*item 17"):
+            mc_runner.run_monte_carlo(model, 1, num_simulations=8,
+                                      device="cpu", **{arg: value})
+    with pytest.raises(NotImplementedError, match="ROADMAP.*item 17"):
+        mc_runner.monte_carlo_report(model, 1, num_simulations=8,
+                                     device="cpu", mesh=object())
