@@ -29,19 +29,22 @@
 //   strategy group over them (strategies_day.cuh's split: no strategy reads
 //   another's carries), keeping only that group's carries and shift(1)
 //   signals and loading only the channels its strategies read, straight
-//   from global memory (coalesced across the lanes). Four chains a trial,
-//   each a quarter of the day (352-460 instructions), 16 warps an SM;
+//   from global memory (coalesced across the lanes), the next day's while
+//   the day computes. Four chains a trial, each about a quarter of the day
+//   (352-460 instructions), 16 warps an SM at 111 registers;
 // - each group's divisions run by FastMath (fastmath.cuh: the compiler's
 //   fast sequences without their slow-path branches, which cut the chain),
 //   and a day whose operands fell out of FastMath's range is recomputed by
 //   IEEE from the saved carries (group_day), so the bits are the first
-//   port's.
-// The split alone took 38.4 ms to 17.0, FastMath to 14.9; staging the
-// channels in a block-wide cp.async ring (one barrier a tile) was slower
-// (15.6-16.5: the barrier ties each group to the slowest), and so was
-// staging them per lane or prefetching the next day (15.0-15.7). What is
-// left is each group's chain: on 4,096 trials (one block an SM) it takes
-// 13.1-13.9 ms, and the 16 warps of a 16,384-trial chunk add only ~10%.
+//   port's;
+// - the channel pointers are launch arguments: in the parameter bank they
+//   hold no registers (read from a table in memory they took 122
+//   registers, and 128 with a spill once the next day loaded ahead).
+// The split alone took 38.4 ms to 17.0, FastMath to ~14.8. Staging the
+// channels in a block-wide cp.async ring (one barrier a tile) was slower,
+// 16.3-16.7 (the barrier ties each group to the slowest), and per-lane
+// staging no faster. What is left is each group's chain: 12.8 ms on 4,096
+// trials (one block an SM), 14.9 on 16,384.
 // Fused-signals mode runs on no main path and keeps the one-thread body
 // (strategies_step: the four groups in turn, each by group_day). Both modes
 // take any trial count B. chip_smoke.py holds both bitwise to the first

@@ -289,17 +289,16 @@ __device__ __forceinline__ void vol_family(const StratState& st,
 
 // ---- S1-S3 benchmarks ----
 template <bool FIRST, class M>
-__device__ __forceinline__ void s_bench(StratState& st, const DayCtx& c,
-                                   M& m) {
+__device__ __forceinline__ void s_bench(StratState& st, const DayCtx& c, M& m) {
   const float r[3] = {c.r_tqqq, c.r_spy, c.r_sso};
 #pragma unroll
-  for (int i = 0; i < 3; ++i) settle<FIRST>(st, i, r[i], 0.0f, st.pa[i], c.cft, m);
+  for (int i = 0; i < 3; ++i)
+    settle<FIRST>(st, i, r[i], 0.0f, st.pa[i], c.cft, m);
 }
 
 // ---- S4/S5 SMA state machines ----
 template <bool FIRST, class M>
-__device__ __forceinline__ void s_sma(StratState& st, const DayCtx& c,
-                                   M& m) {
+__device__ __forceinline__ void s_sma(StratState& st, const DayCtx& c, M& m) {
   const float* K = c.K;
   float new4, new5, flip4, flip5;
   if (FIRST) {
@@ -332,8 +331,7 @@ __device__ __forceinline__ void s_sma(StratState& st, const DayCtx& c,
 
 // ---- S6 60/40 TQQQ/TMF with leverage-drift turnover ----
 template <bool FIRST, class M>
-__device__ __forceinline__ void s6(StratState& st, const DayCtx& c,
-                                   M& m) {
+__device__ __forceinline__ void s6(StratState& st, const DayCtx& c, M& m) {
   const float* K = c.K;
   const int t = c.t;
   const float r_tqqq = c.r_tqqq, r_tmf = c.r_tmf;
@@ -343,8 +341,10 @@ __device__ __forceinline__ void s6(StratState& st, const DayCtx& c,
   const float u6a = m.div(r_tqqq, L6A), u6b = m.div(r_tmf, L6B);
   const float den_a = 1.0f + L6A * u6a, den_b = 1.0f + L6B * u6b;
   const float ma = f01(fabsf(den_a) > 0.01f), mb = f01(fabsf(den_b) > 0.01f);
-  const float emb0 = asel(ma, m.div(L6A * (1.0f + u6a), bsel(ma, den_a, 1.0f)), L6A);
-  const float emb1 = asel(mb, m.div(L6B * (1.0f + u6b), bsel(mb, den_b, 1.0f)), L6B);
+  const float emb0 =
+      asel(ma, m.div(L6A * (1.0f + u6a), bsel(ma, den_a, 1.0f)), L6A);
+  const float emb1 =
+      asel(mb, m.div(L6B * (1.0f + u6b), bsel(mb, den_b, 1.0f)), L6B);
   const float total6 = pg0 + pg1;
   const float rebf = (t % 21 == 0 && t > 0) ? 1.0f : 0.0f;
   const float inv_t6 = m.div(1.0f, jmax(total6, 1e-30f));
@@ -391,8 +391,7 @@ __device__ __forceinline__ void s6(StratState& st, const DayCtx& c,
 
 // ---- S7 vol targeting 20% (no cash on the idle fraction) ----
 template <bool FIRST, class M>
-__device__ __forceinline__ void s7(StratState& st, const DayCtx& c,
-                                   M& m) {
+__device__ __forceinline__ void s7(StratState& st, const DayCtx& c, M& m) {
   float m7, ret, tr;
   const float v7 = guard(c.cur[G_STD20_MP20], 0.01f, 1.0f, &m7);
   const float pos7 = asel(m7, jclip(m.div(0.20f, v7), 0.2f, 2.0f), 1.0f);
@@ -402,8 +401,7 @@ __device__ __forceinline__ void s7(StratState& st, const DayCtx& c,
 
 // ---- S8 composite regime (TQQQ / SPY / cash; no costs) ----
 template <bool FIRST, class M>
-__device__ __forceinline__ void s8(StratState& st, const DayCtx& c,
-                                   M& m) {
+__device__ __forceinline__ void s8(StratState& st, const DayCtx& c, M& m) {
   float target8, ret, tr;
   if (FIRST) {
     target8 = st.pos8;
@@ -426,13 +424,13 @@ __device__ __forceinline__ void s8(StratState& st, const DayCtx& c,
 
 // ---- S9 adaptive vol target (skips NaN days entirely) ----
 template <bool FIRST, class M>
-__device__ __forceinline__ void s9(StratState& st, const DayCtx& c,
-                                   M& m) {
+__device__ __forceinline__ void s9(StratState& st, const DayCtx& c, M& m) {
   const float v9r = c.prev[G_STD20_MP20], sma9 = c.prev[G_SMA200];
   const float ok9 = f01(v9r >= 0.001f) * f01(!isnan(sma9));
   const float target_v9 = asel(f01(c.pp > sma9), 0.35f, 0.12f);
   const float v9 = bsel(ok9, v9r, 1.0f);
-  const float alloc9 = asel(ok9, jclip(m.div(target_v9, v9), 0.0f, 1.0f), st.pa[8]);
+  const float alloc9 =
+      asel(ok9, jclip(m.div(target_v9, v9), 0.0f, 1.0f), st.pa[8]);
   float ret9, tr9;
   vol_family(st, c, 8, alloc9, true, ret9, tr9);
   settle<FIRST>(st, 8, ret9 * ok9, tr9 * ok9, alloc9, c.cft, m);
@@ -440,8 +438,7 @@ __device__ __forceinline__ void s9(StratState& st, const DayCtx& c,
 
 // ---- S10 Sortino (downside vol target) ----
 template <bool FIRST, class M>
-__device__ __forceinline__ void s10(StratState& st, const DayCtx& c,
-                                   M& m) {
+__device__ __forceinline__ void s10(StratState& st, const DayCtx& c, M& m) {
   float m10, ret, tr;
   const float dv10 = guard(c.prev[G_DSTD20_MP20], 0.001f, 1.0f, &m10);
   const float alloc10 = asel(m10, jclip(m.div(0.15f, dv10), 0.0f, 1.5f), 1.0f);
@@ -451,8 +448,7 @@ __device__ __forceinline__ void s10(StratState& st, const DayCtx& c,
 
 // ---- S11 hyper-convex ----
 template <bool FIRST, class M>
-__device__ __forceinline__ void s11(StratState& st, const DayCtx& c,
-                                   M& m) {
+__device__ __forceinline__ void s11(StratState& st, const DayCtx& c, M& m) {
   float ret, tr;
   const float v11 = guard(c.prev[G_STD20], 0.001f, 0.5f);
   float alloc11 = m.div(0.25f, v11);
@@ -465,8 +461,7 @@ __device__ __forceinline__ void s11(StratState& st, const DayCtx& c,
 
 // ---- S12 vol velocity (max of fast/slow vols) ----
 template <bool FIRST, class M>
-__device__ __forceinline__ void s12(StratState& st, const DayCtx& c,
-                                   M& m) {
+__device__ __forceinline__ void s12(StratState& st, const DayCtx& c, M& m) {
   float ret, tr;
   const float v12 = guard(jmax(c.prev[G_STD20], c.prev[G_STD5]), 0.001f, 0.5f);
   const float alloc12 = jclip(m.div(0.22f, v12), 0.0f, 1.0f);
@@ -476,8 +471,7 @@ __device__ __forceinline__ void s12(StratState& st, const DayCtx& c,
 
 // ---- S13 vol-of-vol momentum ----
 template <bool FIRST, class M>
-__device__ __forceinline__ void s13(StratState& st, const DayCtx& c,
-                                   M& m) {
+__device__ __forceinline__ void s13(StratState& st, const DayCtx& c, M& m) {
   float ret, tr;
   const float v13 = guard(c.prev[G_STD20], 0.001f, 0.5f);
   const float vm13 = c.prev[G_VOLMOM5];
@@ -491,8 +485,7 @@ __device__ __forceinline__ void s13(StratState& st, const DayCtx& c,
 
 // ---- S14 skewness-adjusted convex ----
 template <bool FIRST, class M>
-__device__ __forceinline__ void s14(StratState& st, const DayCtx& c,
-                                   M& m) {
+__device__ __forceinline__ void s14(StratState& st, const DayCtx& c, M& m) {
   float ret, tr;
   const float v14 = guard(c.prev[G_STD20], 0.001f, 0.5f);
   const float sk = c.prev[G_SKEW60];
@@ -506,8 +499,7 @@ __device__ __forceinline__ void s14(StratState& st, const DayCtx& c,
 
 // ---- S15 meta-ensemble ----
 template <bool FIRST, class M>
-__device__ __forceinline__ void s15(StratState& st, const DayCtx& c,
-                                   M& m) {
+__device__ __forceinline__ void s15(StratState& st, const DayCtx& c, M& m) {
   float ret, tr;
   const float* prev = c.prev;
   const float dv15 = guard(prev[G_DSTD20], 0.001f, 0.25f);
@@ -523,23 +515,22 @@ __device__ __forceinline__ void s15(StratState& st, const DayCtx& c,
 
 // ---- S16 crisis alpha (regime asymmetric) ----
 template <bool FIRST, class M>
-__device__ __forceinline__ void s16(StratState& st, const DayCtx& c,
-                                   M& m) {
+__device__ __forceinline__ void s16(StratState& st, const DayCtx& c, M& m) {
   float ret, tr;
   const float vr16 = m.div(c.prev[G_STD5], c.prev[G_STD60]);
   const float crisis16 = jmin(f01(c.vix > 25.0f) + f01(vr16 > 1.5f), 1.0f);
   const float target16 = asel(crisis16, 0.08f, 0.30f);
   float m16;
   const float rv16 = guard(c.prev[G_STD5], 0.001f, 1.0f, &m16);
-  const float alloc16 = asel(m16, jclip(m.div(target16, rv16), 0.0f, 1.2f), 0.5f);
+  const float alloc16 =
+      asel(m16, jclip(m.div(target16, rv16), 0.0f, 1.2f), 0.5f);
   vol_family(st, c, 15, alloc16, true, ret, tr);
   settle<FIRST>(st, 15, ret, tr, alloc16, c.cft, m);
 }
 
 // ---- S17 tail-risk optimizer (skew-aware Kelly) ----
 template <bool FIRST, class M>
-__device__ __forceinline__ void s17(StratState& st, const DayCtx& c,
-                                   M& m) {
+__device__ __forceinline__ void s17(StratState& st, const DayCtx& c, M& m) {
   float ret, tr;
   const float* prev = c.prev;
   const float vol17 = guard(prev[G_STD20], 0.001f, 0.25f);
@@ -557,16 +548,15 @@ __device__ __forceinline__ void s17(StratState& st, const DayCtx& c,
   const float kelly17 = asel(f01(eff17 > 0.01f),
                              jclip(m.div(mean17 - 0.03f, eff17 * eff17) * 0.7f,
                                    0.2f, 2.0f), 1.0f);
-  const float alloc17 = jclip(m.div(0.30f, eff17) * pen17 * m.div(kelly17, 1.5f),
-                              0.0f, 1.5f);
+  const float alloc17 =
+      jclip(m.div(0.30f, eff17) * pen17 * m.div(kelly17, 1.5f), 0.0f, 1.5f);
   vol_family(st, c, 16, alloc17, true, ret, tr);
   settle<FIRST>(st, 16, ret, tr, alloc17, c.cft, m);
 }
 
 // ---- S18 momentum-vol convergence ----
 template <bool FIRST, class M>
-__device__ __forceinline__ void s18(StratState& st, const DayCtx& c,
-                                   M& m) {
+__device__ __forceinline__ void s18(StratState& st, const DayCtx& c, M& m) {
   float ret, tr;
   const float* prev = c.prev;
   const float mom18 = bsel(f01(!isnan(prev[G_SUM126])), prev[G_SUM126], 0.0f);
@@ -586,8 +576,7 @@ __device__ __forceinline__ void s18(StratState& st, const DayCtx& c,
 
 // ---- S19 conviction compounder (5% rebalance threshold) ----
 template <bool FIRST, class M>
-__device__ __forceinline__ void s19(StratState& st, const DayCtx& c,
-                                   M& m) {
+__device__ __forceinline__ void s19(StratState& st, const DayCtx& c, M& m) {
   const float* prev = c.prev;
   const float mom19 = bsel(f01(!isnan(prev[G_SUM126])), prev[G_SUM126], 0.0f);
   const float dv19 = guard(prev[G_DSTD20], 0.001f, 0.20f);
@@ -619,8 +608,8 @@ __device__ __forceinline__ void strategies_group(StratState& st,
   if constexpr (G == 0) {
     s_bench<FIRST>(st, c, m); s_sma<FIRST>(st, c, m); s6<FIRST>(st, c, m);
   } else if constexpr (G == 1) {
-    s7<FIRST>(st, c, m); s8<FIRST>(st, c, m); s9<FIRST>(st, c, m); s10<FIRST>(st, c, m);
-    s11<FIRST>(st, c, m);
+    s7<FIRST>(st, c, m); s8<FIRST>(st, c, m); s9<FIRST>(st, c, m);
+    s10<FIRST>(st, c, m); s11<FIRST>(st, c, m);
   } else if constexpr (G == 2) {
     s12<FIRST>(st, c, m); s13<FIRST>(st, c, m); s14<FIRST>(st, c, m);
     s16<FIRST>(st, c, m);
