@@ -10,9 +10,15 @@
 // mean, no jump fires, the tracking error starts at 0. The Pallas compose
 // kernel multiplies by (1 - first) instead; the two agree for every finite
 // input.
+//
+// Division, square root and the Box-Muller trigonometry go through a math
+// policy M (fastmath.cuh). K3 calls the overloads without one, which run
+// IeeeMath: `/`, sqrtf, sinf and cosf as written. K5 runs a day by
+// FastMath and again by IeeeMath where FastMath's flag falls, the same
+// bits without the slow-path branches.
 #pragma once
 
-#include "common.cuh"
+#include "fastmath.cuh"
 
 namespace compose_day {
 
@@ -33,12 +39,13 @@ __device__ __forceinline__ float g2(const float* spa, const float* spd,
   return spa[i] + spd[i] * reg;
 }
 
+template <class M>
 __device__ __forceinline__ float t_polar(uint32_t dk, int idx0, float df,
-                                         float m2df) {
+                                         float m2df, M& m) {
   const float u1 = letf_stream_unit(dk, idx0);
   const float u2 = letf_stream_unit(dk, idx0 + 1);
   const float w = expf(logf(u1) * m2df) - 1.0f;
-  return sqrtf(df * w) * cosf(LETF_TWO_PI * u2);
+  return m.sqrt(df * w) * m.cos(LETF_TWO_PI * u2);
 }
 
 // What one day's stress and funding leave for the per-asset composition.
@@ -48,25 +55,27 @@ struct DayStress {
 };
 
 // Stress + crisis jump + funding spread of one day; updates liq/cred.
-template <bool FIRST>
+template <bool FIRST, class M>
 __device__ __forceinline__ DayStress stress_day(const float* spa,
                                                 const float* spd,
                                                 uint32_t dk, float& liq,
                                                 float& cred, float spy_w,
                                                 float qqq_w, float vix,
-                                                float irx, float reg) {
+                                                float irx, float reg, M& m) {
   DayStress d;
   float n_liq, n_cred;
   {
     const float u1 = letf_stream_unit(dk, STRESS_IDX);
     const float u2 = letf_stream_unit(dk, STRESS_IDX + 1);
-    const float rad = sqrtf(-2.0f * logf(u1));
-    const float ang = LETF_TWO_PI * u2;
-    n_liq = rad * cosf(ang);
-    n_cred = rad * sinf(ang);
+    const float rad = m.sqrt(-2.0f * logf(u1));
+    float sn, cs;
+    m.sin_cos(LETF_TWO_PI * u2, sn, cs);
+    n_liq = rad * cs;
+    n_cred = rad * sn;
   }
   const float u_jump = letf_stream_unit(dk, STRESS_IDX + 4);
-  const float t5 = t_polar(dk, STRESS_IDX + 2, 5.0f, (float)(-2.0 / 5.0));
+  const float t5 =
+      t_polar(dk, STRESS_IDX + 2, 5.0f, (float)(-2.0 / 5.0), m);
 
   const float lmu = g2(spa, spd, LIQ_MU, reg);
   const float cmu = g2(spa, spd, CRED_MU, reg);
@@ -82,7 +91,7 @@ __device__ __forceinline__ DayStress stress_day(const float* spa,
                          + g2(spa, spd, CRED_SIG, reg) * n_cred,
                      0.0f, 3.0f);
   }
-  const float vix_amp = jmax((vix - 25.0f) / 30.0f, 0.0f);
+  const float vix_amp = jmax(m.div(vix - 25.0f, 30.0f), 0.0f);
   const float pjump = jclip(g2(spa, spd, JP_BASE, reg) + 0.008f * vix_amp
                                 + 0.003f * d.liq_n,
                             0.0f, 0.01f);
@@ -93,7 +102,7 @@ __device__ __forceinline__ DayStress stress_day(const float* spa,
   liq = d.liq_n;
   cred = d.cred_n;
 
-  d.risk_free = jclip(irx, 0.0f, 20.0f) / 100.0f;
+  d.risk_free = m.div(jclip(irx, 0.0f, 20.0f), 100.0f);
   const float term = 1.25f - 1.1f * jclip(d.cred_n, 0.0f, 3.0f);
   const float inv_curve = jmax(-term, 0.0f);
   const float stress_v = jmax(vix - 20.0f, 0.0f);
@@ -102,26 +111,39 @@ __device__ __forceinline__ DayStress stress_day(const float* spa,
                  + spa[F_BLIQ] * jclip(d.liq_n, 0.0f, 3.0f)
                  + spa[F_BCRED] * jclip(d.cred_n, 0.0f, 3.0f);
   d.spread = jmin(jmax(spread, spa[F_MIN]), spa[F_MAX]);
-  d.vix_mult = jclip(sqrtf(vix / 20.0f), 0.5f, 1.5f);
+  d.vix_mult = jclip(m.sqrt(m.div(vix, 20.0f)), 0.5f, 1.5f);
   d.regime_mult = 1.0f + 0.15f * reg;
   return d;
+}
+
+template <bool FIRST>
+__device__ __forceinline__ DayStress stress_day(const float* spa,
+                                                const float* spd,
+                                                uint32_t dk, float& liq,
+                                                float& cred, float spy_w,
+                                                float qqq_w, float vix,
+                                                float irx, float reg) {
+  IeeeMath im;
+  return stress_day<FIRST>(spa, spd, dk, liq, cred, spy_w, qqq_w, vix, irx,
+                           reg, im);
 }
 
 // Asset a's net daily return before any bound (lev * und - expense -
 // borrow + clipped tracking error); src is its underlying stream's return.
 // Updates the asset's tracking-error and EMA-bias carries.
-template <bool FIRST>
+template <bool FIRST, class M>
 __device__ __forceinline__ float asset_day(const float* ap, int a, float src,
                                            const DayStress& d, uint32_t dk,
                                            float df, float m2df, float ema,
                                            float one_m_ema, float& te,
-                                           float& bias) {
+                                           float& bias, M& m) {
   const float und = src * ap[C_BETA * NA + a];
   const float lev = ap[C_LEV * NA + a];
-  const float borrow = jmax(lev - 1.0f, 0.0f)
-                       * jmax(d.risk_free + d.spread, 0.0f) / 252.0f;
-  const float lev_ret = lev * und - ap[C_ER * NA + a] / 252.0f - borrow;
-  const float t_a = t_polar(dk, TE_IDX + 2 * a, df, m2df);
+  const float borrow = m.div(jmax(lev - 1.0f, 0.0f)
+                                 * jmax(d.risk_free + d.spread, 0.0f),
+                             252.0f);
+  const float lev_ret = lev * und - m.div(ap[C_ER * NA + a], 252.0f) - borrow;
+  const float t_a = t_polar(dk, TE_IDX + 2 * a, df, m2df, m);
   const float negu = f01(und < 0.0f);
   const float move = (1.0f + 0.3f * fabsf(und))
                      * (ap[C_DOWNSIDE * NA + a] * negu + 0.98f * (1.0f - negu));
@@ -135,11 +157,22 @@ __device__ __forceinline__ float asset_day(const float* ap, int a, float src,
   const float safe = jmax(cap, 1e-6f);
   const float raw = te_n - bias_n;
   const float mclip = f01(cap > 0.0f);
-  const float te_out = mclip * (safe * tanhf(raw / safe))
+  const float te_out = mclip * (safe * tanhf(m.div(raw, safe)))
                        + (1.0f - mclip) * raw;
   te = te_n;
   bias = bias_n;
   return lev_ret + te_out;
+}
+
+template <bool FIRST>
+__device__ __forceinline__ float asset_day(const float* ap, int a, float src,
+                                           const DayStress& d, uint32_t dk,
+                                           float df, float m2df, float ema,
+                                           float one_m_ema, float& te,
+                                           float& bias) {
+  IeeeMath im;
+  return asset_day<FIRST>(ap, a, src, d, dk, df, m2df, ema, one_m_ema, te,
+                          bias, im);
 }
 
 }  // namespace compose_day

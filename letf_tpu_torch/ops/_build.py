@@ -48,7 +48,7 @@ SIGNATURES = {
     "letf_merge": [_I, _P, _P, _I, _I, _I, _P],
     "letf_wash": [_P, _P, _P, _I, _I, _P, _P, _P, _P, _P],
     "letf_strategies": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P],
-    "letf_gbm": [_U, _U, _I, _I, _F, _F, _F, _F, _P, _P, _P],
+    "letf_gbm": [_U, _U, _I, _I, _I, _F, _F, _F, _F, _P, _P, _P],
     "letf_kernel_info": [_I, _P],
     "letf_joint_math_check": [_P, _P, _I, _P, _P],
 }

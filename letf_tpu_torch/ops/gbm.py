@@ -4,7 +4,10 @@ Port of ``letf_tpu/ops/pallas_path.py``:
 
 - ``gbm_buyhold`` (<- ``gbm_buyhold_pallas``): final wealth multiple and
   max drawdown [N] float32 of N trials of a daily-rebalanced L-times GBM
-  over ``n_days``, log-wealth compounding of ``log1p(L*r - cost)``. It
+  over ``n_days``: the reference's log-wealth sum of
+  ``log1p(max(L*r - cost, -0.999))``, computed as products of the daily
+  growth factors over blocks of ``block_pairs`` day pairs, one log a
+  block (csrc/gbm.cu says why, and why it is exact in range). It
   launches ``csrc/gbm.cu`` for a CUDA device and runs ``gbm_plain`` for the
   CPU. The TPU kernel's hardware PRNG cannot be reproduced: both draw
   their normals by Box-Muller from a murmur3 counter generator keyed by
@@ -32,6 +35,9 @@ LAUNCHES = 0      # kernel launches by gbm_buyhold on a CUDA device
 
 _TWO_PI = 2.0 * math.pi
 _SEED_STREAM = 0x6B6      # fold_in data of the seed words
+_Z_MAX = 5.9              # |z| bound of the counter Box-Muller normals
+_G_FLOOR = 1.0 - float(np.float32(0.999))     # 1 + max(net, -0.999)'s floor
+_MAX_BLOCK_PAIRS = 1 << 20
 
 
 def seed_words(seed: int):
@@ -45,38 +51,85 @@ def _f32(v: float) -> torch.Tensor:
     return torch.tensor(v, dtype=torch.float32)
 
 
+def block_pairs(mu: float, sigma: float, leverage: float,
+                daily_cost: float) -> int:
+    """Day pairs a block of K6's linear-domain compounding may span
+    (csrc/gbm.cu): the most pairs whose product of daily growth factors g
+    stays a normal float32 for every draw. With |z| <= 5.9 (a 24-bit unit
+    uniform is >= 2^-25, so sqrt(-2 ln u1) <= 5.887), g lies in [gmin,
+    gmax] = [max(1 + L mu - |L| 5.9 sigma - cost, 1 - 0.999), 1 + L mu +
+    |L| 5.9 sigma - cost]; 2 kp days keep gmin^(2 kp) >= e^-87 and
+    gmax^(2 kp) <= e^88 (float32's normal range is e^-87.3 .. e^88.7).
+    Raises ValueError for non-finite parameters or where even one pair
+    cannot hold."""
+    mu, sigma, lev, cost = (float(np.float32(v)) for v in
+                            (mu, sigma, leverage, daily_cost))
+    if not all(math.isfinite(v) for v in (mu, sigma, lev, cost)):
+        raise ValueError(f"gbm: non-finite parameters mu {mu}, sigma "
+                         f"{sigma}, leverage {lev}, cost {cost}")
+    spread = abs(lev) * _Z_MAX * abs(sigma)
+    gmin = max(1.0 + lev * mu - spread - cost, _G_FLOOR)
+    gmax = 1.0 + lev * mu + spread - cost
+    days = _MAX_BLOCK_PAIRS * 2.0
+    if gmin < 1.0:
+        days = min(days, 87.0 / -math.log(gmin))
+    if gmax > 1.0:
+        days = min(days, 88.0 / math.log(gmax))
+    kp = int(days // 2)
+    if kp < 1:
+        raise ValueError(f"gbm: a daily growth factor in [{gmin}, {gmax}] "
+                         "overflows float32 over one day pair")
+    return kp
+
+
+def pair_normals(lane, i: int, w, dev):
+    """Day pair i's two normals [N] (rad * cos, rad * sin) from the trials'
+    lane keys: the kernel's counter bits and Box-Muller."""
+    pk = rng.day_keys(lane, torch.tensor([i], device=dev), w)[0]
+    u1 = rng.bits_to_unit(rng.stream_bits(pk, 0))
+    u2 = rng.bits_to_unit(rng.stream_bits(pk, 1))
+    rad = torch.sqrt(-2.0 * torch.log(u1))
+    ang = _f32(_TWO_PI).to(dev) * u2
+    return rad * torch.cos(ang), rad * torch.sin(ang)
+
+
 def gbm_plain(seed: int, n_trials: int, n_days: int, mu: float, sigma: float,
               leverage: float = 3.0, daily_cost: float = 0.0,
               device="cpu"):
     """Plain PyTorch K6: the kernel's loop over day pairs, one [N] tensor
-    per value, the same counter bits and float32 arithmetic."""
+    per value, the same counter bits and float32 operations in the same
+    order: g = 1 + max(net, -0.999) compounded in blocks of
+    ``block_pairs`` pairs, the log of each block's product summed, the
+    drawdown 1 - min(W_t / max_{s<=t} W_s)."""
     dev = torch.device(device)
+    kp = block_pairs(mu, sigma, leverage, daily_cost)
     w = seed_words(seed)
     lane = rng.lane_keys(torch.arange(n_trials, device=dev), w)
     mu_t, sig_t, lev_t, cost_t = (_f32(v).to(dev) for v in
                                   (mu, sigma, leverage, daily_cost))
-    two_pi = _f32(_TWO_PI).to(dev)
-    acc = torch.zeros(n_trials, dtype=torch.float32, device=dev)
-    peak = torch.zeros_like(acc)
-    mdd = torch.zeros_like(acc)
-    n_pairs = (n_days + 1) // 2
+    ones = torch.ones(n_trials, dtype=torch.float32, device=dev)
+    acc = torch.zeros_like(ones)
+    wb, d, mn = ones, ones, ones
 
-    def step(acc, peak, mdd, z):
+    def day(wb, d, mn, z):
         net = lev_t * (mu_t + sig_t * z) - cost_t
-        acc = acc + torch.log1p(torch.clamp_min(net, -0.999))
-        peak = torch.maximum(peak, acc)
-        return acc, peak, torch.maximum(mdd, peak - acc)
+        g = 1.0 + torch.clamp_min(net, -0.999)
+        d = torch.clamp_max(d * g, 1.0)
+        return wb * g, d, torch.minimum(mn, d)
 
-    for i in range(n_pairs):
-        pk = rng.day_keys(lane, torch.tensor([i], device=dev), w)[0]
-        u1 = rng.bits_to_unit(rng.stream_bits(pk, 0))
-        u2 = rng.bits_to_unit(rng.stream_bits(pk, 1))
-        rad = torch.sqrt(-2.0 * torch.log(u1))
-        ang = two_pi * u2
-        acc, peak, mdd = step(acc, peak, mdd, rad * torch.cos(ang))
-        if i + 1 < n_pairs or n_days % 2 == 0:
-            acc, peak, mdd = step(acc, peak, mdd, rad * torch.sin(ang))
-    return torch.exp(acc), 1.0 - torch.exp(-mdd)
+    n_pairs = n_days // 2
+    for i0 in range(0, n_pairs, kp):
+        for i in range(i0, min(i0 + kp, n_pairs)):
+            z1, z2 = pair_normals(lane, i, w, dev)
+            wb, d, mn = day(wb, d, mn, z1)
+            wb, d, mn = day(wb, d, mn, z2)
+        acc = acc + torch.log(wb)
+        wb = ones
+    if n_days % 2 == 1:
+        z1, _ = pair_normals(lane, n_pairs, w, dev)
+        wb, d, mn = day(wb, d, mn, z1)
+        acc = acc + torch.log(wb)
+    return torch.exp(acc), 1.0 - mn
 
 
 def gbm_buyhold(seed: int, n_trials: int, n_days: int, mu: float,
@@ -93,11 +146,12 @@ def gbm_buyhold(seed: int, n_trials: int, n_days: int, mu: float,
     if n_trials < 0 or n_days < 0 or n_trials >= 2 ** 31:
         raise ValueError(f"gbm_buyhold: n_trials {n_trials}, n_days "
                          f"{n_days}")
+    kp = block_pairs(mu, sigma, leverage, daily_cost)
     w = seed_words(seed)
     out_w = torch.empty(n_trials, dtype=torch.float32, device=dev)
     out_mdd = torch.empty_like(out_w)
     rc = _build.library().letf_gbm(
-        w[0], w[1], n_trials, n_days, *(float(np.float32(v)) for v in
+        w[0], w[1], n_trials, n_days, kp, *(float(np.float32(v)) for v in
                                         (mu, sigma, leverage, daily_cost)),
         out_w.data_ptr(), out_mdd.data_ptr(), _build.stream_of(out_w))
     _build.check(rc, "letf_gbm")

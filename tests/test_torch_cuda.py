@@ -332,29 +332,87 @@ def test_compose_strategies_kernel_matches_plain(dev, with_cashflows,
                            "regime_high_days"))
 
 
-def test_compose_kernel_matches_plain(dev):
-    """K5 within rtol 1e-5 / atol 1e-6 of its plain version on the card
-    (torch divides by a Python scalar as a multiply by its reciprocal)."""
-    from letf_tpu_torch.ops import compose
-
+def compose_args(dev, S, B, seed=6):
+    """K5's inputs: t-distributed SPY (QQQ and TLT scaled from it), a VIX
+    around 20, IRX 3, a regime switching ~5% of days; antithetic ids."""
     model = default_sim_model()
-    rs = np.random.default_rng(6)
+    rs = np.random.default_rng(seed)
     spy = 0.0003 + 0.012 * rs.standard_t(5, (S, B))
     vix = np.clip(20.0 + 8.0 * rs.standard_normal((S, B)), 9.0, 80.0)
     regime = np.cumsum(rs.random((S, B)) < 0.05, 0) % 2
     chans = [torch.as_tensor(c, dtype=torch.float32, device=dev)
              for c in (spy, 1.2 * spy, -0.2 * spy, vix,
                        np.full((S, B), 3.0), regime)]
-    args = (tparams.pack_stress_params(model).to(dev),
+    return (tparams.pack_stress_params(model).to(dev),
             tparams.pack_asset_params(model).to(dev),
             (torch.arange(B, device=dev) // 2).to(torch.int32), [9, 11],
             *chans)
+
+
+def test_compose_kernel_matches_plain(dev):
+    """K5 within rtol 1e-5 / atol 1e-6 of its plain version on the card
+    (torch divides by a Python scalar as a multiply by its reciprocal)."""
+    from letf_tpu_torch.ops import compose
+
+    args = compose_args(dev, S, B)
     n0 = compose.LAUNCHES
     got = compose.compose_generate(*args)
     assert compose.LAUNCHES == n0 + 1
     ref = compose.compose_plain(*args)
     for a, b in zip(got, ref):
         torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("n_trials", [1, 33, 650])
+@pytest.mark.parametrize("days", [1, 5, 40])
+def test_compose_kernel_ragged_shapes(dev, n_trials, days):
+    """K5 at ragged trial counts (one lane, a strip and a lane, the
+    report's 650) and at day counts shorter than one ring tile (16 days)
+    or than the ring (2 tiles), within the same bounds as above."""
+    from letf_tpu_torch.ops import compose
+
+    args = compose_args(dev, days, n_trials, seed=n_trials + days)
+    got = compose.compose_generate(*args)
+    ref = compose.compose_plain(*args)
+    assert got[0].shape == (6, days, n_trials)
+    for a, b in zip(got, ref):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
+
+
+def load_smoke():
+    import importlib.util
+    from pathlib import Path
+
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parent.parent / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    return smoke
+
+
+def test_compose_kernel_matches_first_port_digests(dev):
+    """K5 bit for bit the first port's kernel on chip_smoke.phase_k5's
+    inputs (the chunk's windowed K1 channels, 7,560 days): all 16,384
+    trials and the report's first 650 (chip_smoke.K5_DIGESTS_FIRST_PORT)."""
+    from letf_tpu_torch.ops import compose
+
+    smoke = load_smoke()
+    mt = tparams.from_numpy(default_sim_model(), dev, torch.float32)
+    sim, buf = smoke.FULL["sim"], smoke.FULL["buf"]
+    regime, ids, signs, sw, offs = smoke.chain_inputs(mt, smoke.B_CHUNK, sim,
+                                                      buf)
+    xk = joint.joint_generate(*smoke.joint_args(mt, regime, ids, signs, sw))
+    chans = smoke.windowed(mt, list(xk) + [regime], offs, sim)
+    del xk
+    ka = smoke.k3_args(mt, ids, sw, chans)
+    rb = smoke.K5_REPORT_B
+    kr = (*ka[:2], ka[2][:rb].contiguous(), ka[3],
+          *(c[:, :rb].contiguous() for c in ka[4:]))
+    got = {"chunk": [smoke.bit_digest(x)
+                     for x in compose.compose_generate(*ka)],
+           "report": [smoke.bit_digest(x)
+                      for x in compose.compose_generate(*kr)]}
+    assert got == smoke.K5_DIGESTS_FIRST_PORT
 
 
 @pytest.mark.parametrize("kind", ["merge", "valley"])
@@ -546,13 +604,7 @@ def test_strategies_kernel_matches_first_port_digests(dev):
     """K4 bit for bit the first port's kernel on the parametric chunk's
     channels (16,384 x 7,560): chip_smoke.K4_DIGESTS_FIRST_PORT, in
     channel mode, fused-signals mode and with cashflows and no costs."""
-    import importlib.util
-    from pathlib import Path
-
-    spec = importlib.util.spec_from_file_location(
-        "chip_smoke", Path(__file__).resolve().parent.parent / "chip_smoke.py")
-    smoke = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(smoke)
+    smoke = load_smoke()
     mt = tparams.from_numpy(default_sim_model(), dev, torch.float32)
     _, chans = smoke.parametric_breakdown(mt)
     assert smoke.k4_digests(chans) == smoke.K4_DIGESTS_FIRST_PORT
@@ -560,10 +612,11 @@ def test_strategies_kernel_matches_first_port_digests(dev):
 
 def test_kernel_info_reports_every_kernel(dev):
     """letf_kernel_info: every kernel of the library fits on an SM at its
-    launch shape; K3 keeps more than 4 warps resident an SM, K1 at least
-    12 (4 blocks of one recurrence and three draw warps) and K4's channel
-    mode at least 16 (4 blocks of four strategy-group warps), both without
-    spilling."""
+    launch shape; K3 keeps more than 4 warps resident an SM (its 72
+    registers and 24 local bytes unchanged since PR 4), K1 at least 12 (4
+    blocks of one recurrence and three draw warps), K4's channel mode and
+    K5 at least 16 (4 blocks of four warps), all three without spilling,
+    and K6 uses no local memory (no Payne-Hanek reduction)."""
     from letf_tpu_torch.ops import _build
 
     info = _build.kernel_info()
@@ -575,19 +628,27 @@ def test_kernel_info_reports_every_kernel(dev):
     assert info["joint"]["local_bytes"] == 0, info
     assert info["strategies"]["warps_per_sm"] >= 16, info
     assert info["strategies"]["local_bytes"] == 0, info
+    k3 = info["compose_strategies"]
+    assert (k3["registers"], k3["local_bytes"]) == (72, 24), k3
+    assert info["compose"]["warps_per_sm"] >= 16, info
+    assert info["compose"]["local_bytes"] == 0, info
+    assert info["gbm"]["local_bytes"] == 0, info
 
 
 def test_gbm_kernel_matches_plain(dev):
     """K6 against its plain version: the same counter bits and float32
-    operations (wealth within rtol 1e-5, drawdown within 1e-5), an odd day
-    count included."""
+    operations (wealth within rtol 1e-5, drawdown within 1e-5), at 252
+    days, an odd 63, and on the ruin path (a drift that keeps net on the
+    -0.999 floor: blocks of 6 pairs, wealth 0, drawdown 1)."""
     from letf_tpu_torch.ops import gbm
 
-    for days in (252, 63):
-        args = (5, 8192, days, 0.0004, 0.015, 3.0, 3e-5)
+    for args in ((5, 8192, 252, 0.0004, 0.015, 3.0, 3e-5),
+                 (5, 8192, 63, 0.0004, 0.015, 3.0, 3e-5),
+                 (2, 4096, 30, -0.5, 0.05, 3.0, 0.0)):
         n0 = gbm.LAUNCHES
         w, m = gbm.gbm_buyhold(*args, device=dev)
         assert gbm.LAUNCHES == n0 + 1
         wp, mp = gbm.gbm_plain(*args, device=dev)
         torch.testing.assert_close(w, wp, rtol=1e-5, atol=0)
         torch.testing.assert_close(m, mp, rtol=0, atol=1e-5)
+    assert (w == 0).all() and (m == 1).all()

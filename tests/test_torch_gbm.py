@@ -8,6 +8,11 @@
   only agree in distribution with the TPU kernel, whose hardware PRNG is
   not reproducible: tests/test_pallas_path.py:51-80's moment test against
   the XLA twin and its zero-drift odd-day (63 days) test.
+- K6's linear-domain form (products of the daily growth factors in
+  blocks, one log a block) against a float64 evaluation of the reference's
+  log1p recurrence (pallas_path.py:66-71) on the port's own normals: it is
+  within rtol 2e-5 (wealth) and atol 1e-6 (drawdown) at 2,520 days, and
+  no farther from float64 than the float32 log-domain form it replaced.
 - The headline report through the twin equals the JAX package's."""
 
 import math
@@ -23,6 +28,99 @@ from letf_tpu.ops import reductions as jred
 from letf_tpu_torch.ops import gbm, reductions, rng
 
 MU, SIGMA = 0.10 / 252, 0.24 / math.sqrt(252)
+COST = 0.0086 / 252
+
+
+def port_normals(seed, n, days):
+    """[days, n] float32: the normals K6 draws for seed's trials 0..n-1,
+    day by day (each pair's cos then sin; an odd last day takes cos)."""
+    w = gbm.seed_words(seed)
+    lane = rng.lane_keys(torch.arange(n), w)
+    zs = []
+    for i in range((days + 1) // 2):
+        zs.extend(gbm.pair_normals(lane, i, w, "cpu"))
+    return torch.stack(zs[:days]).numpy() if days else np.zeros((0, n),
+                                                                np.float32)
+
+
+def log_domain(z, mu, sigma, lev, cost, dtype):
+    """The reference's recurrence (pallas_path.py:66-71) on the normals z
+    [days, n] in numpy ``dtype``: (wealth, drawdown)."""
+    mu, sigma, lev, cost, floor = (dtype(v) for v in
+                                   (mu, sigma, lev, cost, -0.999))
+    acc = np.zeros(z.shape[1], dtype)
+    peak = np.zeros_like(acc)
+    mdd = np.zeros_like(acc)
+    for zt in z.astype(dtype):
+        net = lev * (mu + sigma * zt) - cost
+        acc = acc + np.log1p(np.maximum(net, floor))
+        peak = np.maximum(peak, acc)
+        mdd = np.maximum(mdd, peak - acc)
+    return np.exp(acc), dtype(1) - np.exp(-mdd)
+
+
+def test_plain_is_closer_to_float64_than_the_log_domain_form():
+    """gbm_plain (the kernel's arithmetic) against float64 on the same
+    normals, 1,024 trials x 2,520 days (blocks of 140 pairs): wealth within
+    rtol 2e-5, drawdown within atol 1e-6, and no farther from float64 than
+    the float32 log-domain recurrence of the first port."""
+    n, days = 1024, 2520
+    z = port_normals(4, n, days)
+    w64, m64 = log_domain(z, MU, SIGMA, 3.0, COST, np.float64)
+    w32, m32 = log_domain(z, MU, SIGMA, 3.0, COST, np.float32)
+    w, m = (v.numpy() for v in gbm.gbm_plain(4, n, days, MU, SIGMA, 3.0,
+                                             COST))
+    err_w = np.abs(w / w64 - 1).max()
+    err_m = np.abs(m - m64).max()
+    np.testing.assert_allclose(w, w64, rtol=2e-5)
+    np.testing.assert_allclose(m, m64, rtol=0, atol=1e-6)
+    assert err_w <= np.abs(w32 / w64 - 1).max()
+    assert err_m <= np.abs(m32 - m64).max()
+
+
+def test_ruin_on_the_floor():
+    """A drift that keeps net on the -0.999 floor every day for six weeks
+    (blocks of 6 pairs, each block's product near 1e-36): wealth underflows
+    to 0 as the float32 reference's does and is within 1e-37 of float64,
+    drawdown is exactly 1."""
+    n, days = 64, 30
+    assert gbm.block_pairs(-0.5, 0.05, 3.0, 0.0) == 6
+    z = port_normals(2, n, days)
+    w64, _ = log_domain(z, -0.5, 0.05, 3.0, 0.0, np.float64)
+    w32, m32 = log_domain(z, -0.5, 0.05, 3.0, 0.0, np.float32)
+    w, m = gbm.gbm_buyhold(2, n, days, -0.5, 0.05, 3.0, device="cpu")
+    np.testing.assert_allclose(w.numpy(), w64, rtol=0, atol=1e-37)
+    np.testing.assert_array_equal(w.numpy(), w32)
+    assert (m == 1.0).all() and (m32 == 1.0).all()
+
+
+@pytest.mark.parametrize("days", [0, 1, 2, 63])
+def test_short_and_odd_horizons(days):
+    """Zero days give wealth 1 and drawdown 0 exactly; one day, one pair
+    and an odd 63 days (the last pair's sine unused) match float64 on the
+    same normals."""
+    n = 256
+    w, m = gbm.gbm_buyhold(6, n, days, 0.0004, 0.02, 3.0, 3e-5,
+                           device="cpu")
+    assert w.shape == m.shape == (n,) and w.dtype == torch.float32
+    if days == 0:
+        assert (w == 1.0).all() and (m == 0.0).all()
+        return
+    w64, m64 = log_domain(port_normals(6, n, days), 0.0004, 0.02, 3.0, 3e-5,
+                          np.float64)
+    np.testing.assert_allclose(w.numpy(), w64, rtol=2e-6)
+    np.testing.assert_allclose(m.numpy(), m64, rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("mu,sigma", [(0.0, 1e30), (float("nan"), 0.01),
+                                      (0.0, float("inf"))])
+def test_parameters_no_block_can_hold_raise(mu, sigma):
+    """A largest daily growth factor that overflows float32 over one day
+    pair, or a non-finite parameter, raises ValueError in the wrapper."""
+    with pytest.raises(ValueError):
+        gbm.gbm_buyhold(0, 8, 10, mu, sigma, 3.0, device="cpu")
+    with pytest.raises(ValueError):
+        gbm.block_pairs(mu, sigma, 3.0, 0.0)
 
 
 def test_xla_twin_matches_jax():
