@@ -216,6 +216,7 @@ def fmt_spread(v):
 
 
 GENERAL_WINDOWS = 0     # window_offsets launches inside the general path
+GENERAL_TRIALS = []     # the trial count of each general-path call
 
 
 def observe_general_windows():
@@ -223,7 +224,8 @@ def observe_general_windows():
     kernel behind one wrapper, ``window.window_offsets``, with one launch
     counter. To report them apart, the general path's entry in mc_runner
     is wrapped: the window launches made inside it go to GENERAL_WINDOWS
-    (K2'), and ``read`` gives K2 the rest."""
+    (K2'), and ``read`` gives K2 the rest. Each call's trial count (K5's
+    B) goes to GENERAL_TRIALS."""
     from letf_tpu_torch.ops import window
     from letf_tpu_torch.parallel import mc_runner
 
@@ -232,6 +234,7 @@ def observe_general_windows():
     def generate_paths_batched(*args, **kw):
         global GENERAL_WINDOWS
         before = window.LAUNCHES
+        GENERAL_TRIALS.append(len(args[2]))
         out = inner(*args, **kw)
         GENERAL_WINDOWS += window.LAUNCHES - before
         return out
@@ -920,6 +923,7 @@ def phase_main_path(model, counters):
 
     n, years = 1_048_576, 30
     reset(counters)
+    GENERAL_TRIALS.clear()
     stages = {}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -937,7 +941,8 @@ def phase_main_path(model, counters):
         f"{wall - rep['post_tax_seconds']:.3f} s, "
         f"{n * years * 252 / wall:.6e} trial-days/s, peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, post-tax "
-        f"stages (s) {json.dumps(stages)}, launches {launches}")
+        f"stages (s) {json.dumps(stages)}, launches {launches}, "
+        f"general path (K5) at {GENERAL_TRIALS} trials")
     check_pretax(rep, 0.0005, 0.005, 0.003)
     post = {sid: rep["strategies"][sid]["post_tax"] for sid in ("S7", "S8")}
     log("post-tax: " + json.dumps(

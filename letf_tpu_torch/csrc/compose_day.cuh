@@ -12,10 +12,10 @@
 // input.
 //
 // Division, square root and the Box-Muller trigonometry go through a math
-// policy M (fastmath.cuh). K3 calls the overloads without one, which run
-// IeeeMath: `/`, sqrtf, sinf and cosf as written. K5 runs a day by
-// FastMath and again by IeeeMath where FastMath's flag falls, the same
-// bits without the slow-path branches.
+// policy M (fastmath.cuh). K3 runs IeeeMath: `/`, sqrtf, sinf and cosf as
+// written (FastMath would spill it, PERF.md). K5 runs a day by FastMath
+// and again by IeeeMath where FastMath's flag falls, the same bits
+// without the slow-path branches.
 #pragma once
 
 #include "fastmath.cuh"
@@ -116,18 +116,6 @@ __device__ __forceinline__ DayStress stress_day(const float* spa,
   return d;
 }
 
-template <bool FIRST>
-__device__ __forceinline__ DayStress stress_day(const float* spa,
-                                                const float* spd,
-                                                uint32_t dk, float& liq,
-                                                float& cred, float spy_w,
-                                                float qqq_w, float vix,
-                                                float irx, float reg) {
-  IeeeMath im;
-  return stress_day<FIRST>(spa, spd, dk, liq, cred, spy_w, qqq_w, vix, irx,
-                           reg, im);
-}
-
 // Asset a's net daily return before any bound (lev * und - expense -
 // borrow + clipped tracking error); src is its underlying stream's return.
 // Updates the asset's tracking-error and EMA-bias carries.
@@ -162,17 +150,6 @@ __device__ __forceinline__ float asset_day(const float* ap, int a, float src,
   te = te_n;
   bias = bias_n;
   return lev_ret + te_out;
-}
-
-template <bool FIRST>
-__device__ __forceinline__ float asset_day(const float* ap, int a, float src,
-                                           const DayStress& d, uint32_t dk,
-                                           float df, float m2df, float ema,
-                                           float one_m_ema, float& te,
-                                           float& bias) {
-  IeeeMath im;
-  return asset_day<FIRST>(ap, a, src, d, dk, df, m2df, ema, one_m_ema, te,
-                          bias, im);
 }
 
 }  // namespace compose_day

@@ -114,8 +114,9 @@ __device__ __forceinline__ void compose_stage_day(
     acc[5] = jmax(acc[5], vix);
     acc[6] = acc[6] + reg;
   }
+  IeeeMath im;
   const DayStress ds = stress_day<FIRST>(T.spa, T.spd, dk, liq, cred, spy_w,
-                                         qqq_w, vix, irx, reg);
+                                         qqq_w, vix, irx, reg, im);
   if (HALF == 0) {
     acc[1] = acc[1] + ds.jump_on;
     acc[2] = acc[2] + ds.liq_n;
@@ -133,7 +134,7 @@ __device__ __forceinline__ void compose_stage_day(
     const float src = ui == 0 ? ds.spy_a : (ui == 1 ? ds.qqq_a : tlt_w);
     const float e = asset_day<FIRST>(T.ap, a, src, ds, dk, K[K_DF + a],
                                      K[K_M2DF + a], K[K_EMA],
-                                     K[K_ONE_M_EMA], te[j], bias[j]);
+                                     K[K_ONE_M_EMA], te[j], bias[j], im);
     const float fin_a = f01(isfinite(e));
     fin_day = fin_day * fin_a;
     slot[F_ETF + k][lane] = jclip(bsel(fin_a, e, 0.0f), -0.999f, 10.0f);

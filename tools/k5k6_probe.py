@@ -1,10 +1,9 @@
 #!/usr/bin/env python3
-"""Times of kernels K5 (compose) and K6 (buy-and-hold) on an NVIDIA GPU,
-for comparing two trees and K5's exploratory builds.
+"""Times and instruction counts of kernels K5 (compose) and K6
+(buy-and-hold) on an NVIDIA GPU, for comparing two trees.
 
     python3 tools/k5k6_probe.py times [--root DIR]
-    python3 tools/k5k6_probe.py variants
-    python3 tools/k5k6_probe.py sass
+    python3 tools/k5k6_probe.py sass [--root DIR]
 
 ``times`` imports the port and chip_smoke.py from DIR (default: the
 current tree; a ``git archive`` of another commit unpacked under build/
@@ -14,13 +13,7 @@ inputs (min, median, max ms over 5 runs, and the outputs' bit digests),
 K6 at 1,048,576 x 7,560 likewise, and gbm_percentile_report(1, 1,048,576,
 30) (three walls after a warm-up, and its values).
 
-``variants`` builds tools/k5_probe.cu (K5's ring with 1 or 2 assets an
-asset warp, 1- or 2-day units, and either role alone) with nvcc into
-build/k5_probe/, and times each build beside the shipped kernel, in turns
-over two rounds, at both shapes; every full build must give
-chip_smoke.K5_DIGESTS_FIRST_PORT. Prints ptxas's report and one JSON line.
-
-``sass`` disassembles the tree's kernel library (cuobjdump -sass) and
+``sass`` disassembles DIR's kernel library (cuobjdump -sass) and
 prints, for K6's and K5's kernels, each loop of over 100 instructions
 (the back branch's span) with its forward branches over 50 instructions
 (the IEEE recompute paths a day's fast path skips) and its MUFU count:
@@ -30,7 +23,6 @@ the instructions a trial-day issues are read from these.
 from __future__ import annotations
 
 import argparse
-import ctypes
 import json
 import math
 import re
@@ -41,7 +33,6 @@ import time
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parent.parent
-VARIANTS = (210, 211, 212, 220, 110, 111, 112, 120)   # APW, U, ROLE
 
 
 def k5_inputs(cs, torch):
@@ -93,69 +84,8 @@ def times(root: str) -> dict:
     return out
 
 
-def build_probe():
-    from letf_tpu_torch.ops import _build
-
-    out = REPO / "build" / "k5_probe" / "libk5_probe.so"
-    out.parent.mkdir(parents=True, exist_ok=True)
-    cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-shared",
-           "-I", str(_build.CSRC), "-o", str(out),
-           str(REPO / "tools" / "k5_probe.cu")]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    print(res.stdout + res.stderr, flush=True)
-    res.check_returncode()
-    lib = ctypes.CDLL(str(out))
-    lib.letf_k5_probe.argtypes = (_build.SIGNATURES["letf_compose"][:-1]
-                                  + [ctypes.c_int, ctypes.c_void_p])
-    lib.letf_k5_probe.restype = ctypes.c_int
-    return lib
-
-
-def variants() -> dict:
-    sys.path.insert(0, str(REPO))
-    import torch
-    import chip_smoke as cs
-    from letf_tpu_torch.ops import _build, compose, rng
-
-    lib = build_probe()
-    inputs = k5_inputs(cs, torch)
-
-    def probe(v, sp, ap, ids, sw, *chans):
-        S, B = chans[0].shape
-        f32 = dict(dtype=torch.float32, device=chans[0].device)
-        etf = torch.empty((compose.NA, S, B), **f32)
-        spy_a, qqq_a, cash = (torch.empty((S, B), **f32) for _ in range(3))
-        sums = torch.empty((3, B), **f32)
-        kc = compose.kernel_consts(chans[0].device)
-        rc = lib.letf_k5_probe(
-            sp.data_ptr(), ap.data_ptr(), kc.data_ptr(), ids.data_ptr(),
-            int(sw[0]) & rng.MASK32, int(sw[1]) & rng.MASK32,
-            *(c.data_ptr() for c in chans), S, B, etf.data_ptr(),
-            spy_a.data_ptr(), qqq_a.data_ptr(), cash.data_ptr(),
-            sums.data_ptr(), v, _build.stream_of(etf))
-        assert rc == 0, (v, rc)
-        return etf, spy_a, qqq_a, cash, sums[0], sums[1], sums[2]
-
-    want = {"16384": cs.K5_DIGESTS_FIRST_PORT["chunk"],
-            "650": cs.K5_DIGESTS_FIRST_PORT["report"]}
-    out = {}
-    for rnd in range(2):
-        for v in ("shipped",) + VARIANTS:
-            for shape, a in inputs.items():
-                fn = ((lambda: compose.compose_generate(*a))
-                      if v == "shipped" else (lambda: probe(v, *a)))
-                ms, got = cs.spread(fn, 3)
-                rec = out.setdefault(f"{v}_{shape}", dict(ms=[]))
-                rec["ms"].append(ms)
-                if rnd == 0 and (v == "shipped" or v % 10 == 0):
-                    rec["digests_equal"] = (
-                        [cs.bit_digest(g) for g in got] == want[shape])
-                print(rnd, v, shape, ms, flush=True)
-    return out
-
-
-def sass() -> dict:
-    sys.path.insert(0, str(REPO))
+def sass(root: str) -> dict:
+    sys.path.insert(0, str(Path(root).resolve()))
     from letf_tpu_torch.ops import _build
 
     cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
@@ -192,11 +122,10 @@ def sass() -> dict:
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("mode", choices=("times", "variants", "sass"))
+    ap.add_argument("mode", choices=("times", "sass"))
     ap.add_argument("--root", default=str(REPO))
     args = ap.parse_args()
-    out = {"times": lambda: times(args.root), "variants": variants,
-           "sass": sass}[args.mode]()
+    out = times(args.root) if args.mode == "times" else sass(args.root)
     print(json.dumps(out), flush=True)
 
 
