@@ -10,8 +10,9 @@ current tree; a ``git archive`` of another commit unpacked under build/
 for the other side of a comparison) and prints one JSON object: K5 at
 16,384 x 7,560 and at the report's 650 x 7,560 trials on chip_smoke's K5
 inputs (min, median, max ms over 5 runs, and the outputs' bit digests),
-K6 at 1,048,576 x 7,560 likewise, and gbm_percentile_report(1, 1,048,576,
-30) (three walls after a warm-up, and its values).
+K3 on the same 16,384 trials (K5's inputs are K3's) and K6 at 1,048,576 x
+7,560 likewise, and gbm_percentile_report(1, 1,048,576, 30) (three walls
+after a warm-up, and its values).
 
 ``sass`` disassembles DIR's kernel library (cuobjdump -sass) and
 prints, for K6's and K5's kernels, each loop of over 100 instructions
@@ -59,15 +60,20 @@ def times(root: str) -> dict:
     import torch
     import chip_smoke as cs
     from letf_tpu_torch.ops import _build, compose, gbm
+    from letf_tpu_torch.ops import compose_strategies as k3
 
     _build.library()
     out = {"root": root, "kernel_info": {
         k: v for k, v in _build.kernel_info().items()
-        if k in ("compose", "gbm")}}
-    for shape, a in k5_inputs(cs, torch).items():
+        if k in ("compose_strategies", "compose", "gbm")}}
+    inputs = k5_inputs(cs, torch)
+    for shape, a in inputs.items():
         ms, got = cs.spread(lambda: compose.compose_generate(*a), 5)
         out[f"k5_{shape}"] = dict(ms=ms,
                                   digests=[cs.bit_digest(g) for g in got])
+    ms, got = cs.spread(lambda: k3.compose_strategies(*inputs["16384"]), 5)
+    out["k3"] = dict(ms=ms, digests=[cs.bit_digest(g) for g in got])
+    del inputs, got
     mu, sigma = 0.10 / 252.0, 0.24 / math.sqrt(252.0)
     args = (0, 1_048_576, 7560, mu, sigma, 3.0, 0.0086 / 252)
     ms, (w, m) = cs.spread(lambda: gbm.gbm_buyhold(*args), 5)
