@@ -22,7 +22,9 @@ Phases, each raising on failure:
    bounds, K5 (compose) within rtol 1e-5 / atol 1e-6 and bit for bit the
    first port's kernel at 16,384 and at the report's 650 trials (its
    output digests, stored below), K7 (bridge merge,
-   merge and valley kinds, [2S, 600] and [2S, 2,048] with 0/2/4 payloads)
+   merge and valley kinds, [2S, 600] and [2S, 2,048] with 0/2/4 payloads,
+   and the exact-tax report's [15,120, 8,192] and [15,120, 4,096] and the
+   50-year [25,200, 256], each beside torch.sort)
    and K8 (wash matching, [S, 650], and edge cases at 1, 33 and 650
    trials) bitwise; K6 (buy-and-hold) within
    rtol 1e-5 at 1,048,576 x 30 years (K4 follows in phase 8, on the main
@@ -41,7 +43,11 @@ Phases, each raising on failure:
    1,048,576 trials, seed 2, chunks of 16,384, tax_mode="sampled") (the
    second slice's main path), its pre-tax statistics against the JAX
    reference's, its post-tax tables against the reference's exact-all
-   taxes and its sampled estimator's spread (phase_tax_reference).
+   taxes and its sampled estimator's spread (phase_tax_reference); then
+   the exact-tax report, monte_carlo_report(default_sim_model(), 30,
+   16,384 trials, seed 2, tax_mode="exact_all"), every trial taxed, held
+   to the reference's exact-all statistics and to the tax reference's
+   shared trials (phase_exact_all).
 8. This slice's main path, monte_carlo_report(default_sim_model(), 30,
    32,768 trials, seed 2, engine_mode="parametric") with its default
    sampled taxes, the seconds of each stage of one of its chunks, K4
@@ -59,7 +65,9 @@ Phases, each raising on failure:
 10. The validation invariants: zero-drift drag through K3, flat-market
    decay through K6.
 11. torch.profiler breakdowns of one pre-tax chunk and of the post-tax part
-   of a one-chunk sampled report.
+   of a one-chunk sampled report; a breakdown of one 4,096-trial
+   exact-tax chunk by stage (host clock, CUDA events, nvidia-smi's busy
+   samples).
 Every path runs with the launch counters set to 0 just before it and read
 just after. The last lines are the kernel_info JSON, nvidia-smi's name
 and power limit, the kernels JSON and {"ok": true, ...}.
@@ -542,10 +550,12 @@ def phase_k5(ka):
                       OPS_PER_TRIAL_DAY["compose"] * S * B)
 
 
-def bridge_sort_inputs(g, R, S, kind, n_pay):
+def bridge_sort_inputs(g, R, S, kind, n_pay, head_zero=False):
     """Bridge-like K7 operands [2S, R]: non-negative float32 keys with
     ties, ascending halves (the first half unsorted for "valley"), the
-    unique packed secondary (tag << 24) | position, random payloads."""
+    unique packed secondary (tag << 24) | position, random payloads (zero
+    in the first half with ``head_zero``, as the bridge's valley has
+    them)."""
     N = 2 * S
     key = torch.round(torch.randn((N, R), generator=g, device="cuda").abs()
                       * 4) / 4
@@ -557,13 +567,28 @@ def bridge_sort_inputs(g, R, S, kind, n_pay):
         N, R).contiguous()
     pays = [torch.randn((N, R), generator=g, device="cuda")
             for _ in range(n_pay)]
+    if head_zero:
+        for p in pays:
+            p[:S] = 0.0
     return key, sec, pays
+
+
+# The exact-tax report's K7 shapes at 30 years (a 4,096-trial chunk: 12
+# launches on folds of two strategies, 4 on S8's two assets) and the
+# reference's 50-year horizon: (kind, payloads, days a half, columns).
+K7_EXACT_SHAPES = (("merge", 2, 7560, 8192), ("valley", 4, 7560, 8192),
+                   ("merge", 2, 7560, 4096), ("valley", 4, 7560, 4096),
+                   ("merge", 2, 12600, 256))
 
 
 def phase_k7(sim):
     """K7 against its plain version (one full stable torch.sort), bitwise:
     merge and valley at R = 600 (the sampled report's bridge batch) and
-    2,048 rows of 2 x sim days, with 0, 2 and 4 payloads."""
+    2,048 rows of 2 x sim days, with 0, 2 and 4 payloads; then (not with
+    --quick) at the exact-tax report's shapes and the 50-year one
+    (K7_EXACT_SHAPES, the valley with zero head payloads as the bridge
+    calls it), each timed over 5 runs beside one stable torch.sort of the
+    packed int64 (key, sec) columns."""
     from letf_tpu_torch.ops import sort_bridge as k7
 
     g = torch.Generator(device="cuda").manual_seed(7)
@@ -592,6 +617,35 @@ def phase_k7(sim):
                     out.update(ms=ms, plain_ms=plain_ms)
                     log(f"K7 library call (torch.sort, stable, packed int64 "
                         f"key) at [{N}, {R}]: {lib_ms:.3f} ms")
+    if sim != FULL["sim"]:
+        return out
+    shapes = []
+    for kind, n_pay, S, R in K7_EXACT_SHAPES:
+        hz = kind == "valley"
+        key, sec, pays = bridge_sort_inputs(g, R, S, kind, n_pay, hz)
+        args = (key, sec, tuple(pays), kind, hz)
+        ms, got = spread(lambda: k7.sort_bridge(*args), 5)
+        ref = k7.sort_bridge_plain(*args)
+        for a, b in zip(got, ref):
+            assert torch.equal(a, b), (kind, n_pay, S, R)
+        del got, ref
+        ok = k7._order_key(key, sec)
+        lib_ms, _ = spread(lambda: torch.sort(ok, dim=0, stable=True), 3)
+        del ok
+        # Bytes: key and sec both halves, the payloads' tails (and heads
+        # unless zero), every output.
+        words = 4 * S + n_pay * (S if hz else 2 * S) + (2 + n_pay) * 2 * S
+        b_ms, _ = bound(words * R * 4, 0.0)
+        shapes.append(dict(kind=kind, payloads=n_pay, shape=[2 * S, R],
+                           ms_spread=ms, torch_sort_ms=lib_ms[1],
+                           bound_ms=b_ms))
+        log(f"K7 sort_bridge {kind} at [{2 * S}, {R}], {n_pay} payloads"
+            f"{' (zero head)' if hz else ''}: bitwise its plain version; "
+            f"kernel {fmt_spread(ms)}, torch.sort {fmt_spread(lib_ms)}, "
+            f"bound {b_ms:.3f} ms")
+        del key, sec, pays
+        torch.cuda.empty_cache()
+    out["shapes"] = shapes
     return out
 
 
@@ -989,7 +1043,8 @@ def phase_tax_reference(model, rep, n=1_048_576, years=30, stride=128,
        drawn among its 9 nearest in wealth, 10,000 draws): the port's
        sampled S7 p50, S7 median tax and S8 median tax must rank inside
        the emulated estimator's central 99.8%, and the reference's sampled
-       values inside its central 99.98%."""
+       values inside its central 99.98%.
+    Returns the subsample's rows and {sid: (wealth, tax)} of S7 and S8."""
     from letf_tpu_torch import reporting
     from letf_tpu_torch.parallel import mc_runner
 
@@ -1062,6 +1117,227 @@ def phase_tax_reference(model, rep, n=1_048_576, years=30, stride=128,
     log(f"tax reference check ({len(rows)} trials exactly taxed, "
         f"{time.perf_counter() - t0:.1f} s): " + json.dumps(out))
     assert not failed, failed
+    return rows, {sid: (torch.cat(wealth[sid]).double().numpy(),
+                        torch.cat(tax[sid]).double().numpy())
+                  for sid in cols}
+
+
+@contextlib.contextmanager
+def replay_clock(stages):
+    """Times the bridge's replay_trades (its day loop) on the host clock
+    after a sync, into stages["replay_trades"], while the block runs."""
+    from letf_tpu_torch.tax import device_bridge
+
+    inner = device_bridge.replay_trades
+
+    def replay_trades(*args):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = inner(*args)
+        torch.cuda.synchronize()
+        stages["replay_trades"] = (stages.get("replay_trades", 0.0)
+                                   + time.perf_counter() - t0)
+        return out
+
+    device_bridge.replay_trades = replay_trades
+    try:
+        yield
+    finally:
+        device_bridge.replay_trades = inner
+
+
+# The JAX reference's exact-all run: 1,048,576 x 30y, seed 2, default tax
+# configuration, every trial taxed (TPU; only its statistics are used).
+EXACT_TAX_REFERENCE = "EXACT_TAX_SCALE_r05.json"
+
+
+def phase_exact_all(model, counters, shared, n=16_384, years=30, seed=0):
+    """This slice's main path: monte_carlo_report(default_sim_model(), 30,
+    n trials, seed 2, tax_mode="exact_all"), every trial taxed exactly in
+    4,096-trial chunks, the launch counters set to 0 just before and read
+    just after, its post-tax stages timed (replay_trades apart). Holds: no trial dropped as non-finite (the default
+    on_nonfinite="raise" would have raised); each taxable strategy's
+    post-tax p50 and median tax drag, from the per-trial vectors the
+    report reduces, within 4 bootstrap standard errors (+$1) of the
+    reference's exact-all values (EXACT_TAX_REFERENCE); the trials shared
+    with phase_tax_reference's stride-128 subsample (``shared``) have the
+    same S7 and S8 wealth and drag to float32 rounding; K7 launched 16
+    times a chunk (12 valley and merge sorts on the folds of two
+    strategies, 4 on S8's two assets) and K8 8 times. Returns the
+    launches."""
+    from pathlib import Path
+
+    from letf_tpu_torch import config as tcfg
+    from letf_tpu_torch import reporting
+    from letf_tpu_torch.parallel import mc_runner
+
+    ref = json.loads((Path(__file__).resolve().parent
+                      / EXACT_TAX_REFERENCE).read_text())["per_strategy"]
+    values, stages = {}, {}
+    # The report's exact-tax helper, asked for the per-trial vectors it
+    # reduces.
+    inner = reporting.exact_post_tax_all_trials
+
+    def exact_post_tax_all_trials(*args, **kw):
+        return inner(*args, trial_values=values, **kw)
+
+    reporting.exact_post_tax_all_trials = exact_post_tax_all_trials
+    try:
+        with replay_clock(stages):
+            reset(counters)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rep = mc_runner.monte_carlo_report(
+                model, years, num_simulations=n, seed=2,
+                tax_mode="exact_all", device="cuda", stage_seconds=stages)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = read(counters)
+    finally:
+        reporting.exact_post_tax_all_trials = inner
+    chunks = -(-n // 4096)
+    log(f"exact_all report: monte_carlo_report {n} x {years}y "
+        f"(tax_mode {rep['tax_mode']!r}): wall {wall:.3f} s, "
+        f"post_tax_seconds {rep['post_tax_seconds']}, post-tax stages (s) "
+        f"{json.dumps(stages)}, {n * years * 252 / rep['post_tax_seconds']:.6e}"
+        f" taxed trial-days/s, launches {launches}")
+    rng_np = np.random.default_rng(seed)
+    out, failed = {}, []
+    for sid in tcfg.TAXABLE_IDS:
+        pt = rep["strategies"][sid]["post_tax"]
+        w, pw = values[sid]
+        assert pt["n_sampled"] == len(w) == n, (sid, pt["n_sampled"])
+        assert np.isfinite(w).all() and np.isfinite(pw).all(), sid
+        assert pt["wealth"]["p50"] == float(np.percentile(pw, 50)), sid
+        drag = w - pw
+        boot = rng_np.integers(0, n, (200, n))
+        for k, (v, bs) in {"post_tax_p50": (np.median(pw),
+                                            np.median(pw[boot], axis=1)),
+                           "median_tax": (np.median(drag),
+                                          np.median(drag[boot], axis=1))
+                           }.items():
+            se = float(bs.std())
+            r = ref[sid][k]
+            z = (v - r) / se if se > 0 else 0.0
+            out[f"{sid}_{k}"] = dict(value=float(v), se=se, ref=r,
+                                     z=float(z))
+            if abs(v - r) > 4.0 * se + 1.0:
+                failed.append((sid, k))
+    rows, ref_tax = shared
+    take = rows < n
+    diffs = {}
+    for sid, (w_ref, t_ref) in ref_tax.items():
+        w, pw = values[sid]
+        w_ref, t_ref = w_ref[take], t_ref[take]
+        d = (w - pw)[rows[take]]
+        d_ref = np.minimum(t_ref, np.maximum(w_ref, 0.0))
+        ulp = np.spacing(np.maximum(np.abs(w_ref), np.abs(t_ref))
+                         .astype(np.float32)).astype(np.float64)
+        diffs[sid] = dict(trials=int(take.sum()),
+                          max_wealth_diff=float(np.abs(w[rows[take]]
+                                                       - w_ref).max()),
+                          max_drag_diff=float(np.abs(d - d_ref).max()),
+                          max_drag_diff_ulps=float((np.abs(d - d_ref)
+                                                    / ulp).max()))
+        if not (np.array_equal(w[rows[take]], w_ref)
+                and (np.abs(d - d_ref) <= 4 * ulp).all()):
+            failed.append((sid, "shared trials"))
+    log("exact_all against the reference's exact-all run (4 bootstrap SE "
+        "+ $1): " + json.dumps(out) + "; trials shared with the tax "
+        "reference subsample: " + json.dumps(diffs))
+    assert not failed, failed
+    assert launches["sort_bridge"] == 16 * chunks, launches
+    assert launches["wash"] == 8 * chunks, launches
+    assert launches["compose"] == chunks, launches
+    assert launches["window_tiles"] == chunks, launches
+    assert launches["joint"] == chunks + 1, launches
+    assert launches["compose_strategies"] == 1, launches
+    return launches
+
+
+@contextlib.contextmanager
+def device_clock(ms, name, mod, attr, key=None):
+    """Times each call of mod.attr on the card (CUDA events around it,
+    read after the block) into ms[name], or ms[key(args, kw)] when ``key``
+    is given."""
+    inner = getattr(mod, attr)
+    marks = []
+
+    def timed_call(*args, **kw):
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        out = inner(*args, **kw)
+        b.record()
+        marks.append((name if key is None else key(args, kw), a, b))
+        return out
+
+    setattr(mod, attr, timed_call)
+    try:
+        yield
+    finally:
+        setattr(mod, attr, inner)
+        torch.cuda.synchronize()
+        for k, a, b in marks:
+            ms[k] = ms.get(k, 0.0) + a.elapsed_time(b)
+
+
+@contextlib.contextmanager
+def busy_samples(samples, period_ms=100):
+    """nvidia-smi's utilization.gpu (the share of its last sample period
+    in which a kernel ran) every period_ms while the block runs."""
+    p = subprocess.Popen(
+        ["nvidia-smi", "--query-gpu=utilization.gpu",
+         "--format=csv,noheader,nounits", "-lms", str(period_ms)],
+        stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+    try:
+        yield
+    finally:
+        p.terminate()
+        out, _ = p.communicate(timeout=60)
+        samples.extend(int(v) for v in out.split() if v.isdigit())
+
+
+def phase_exact_breakdown(model, n=4096, years=30):
+    """One 4,096-trial exact-tax chunk (exact_post_tax_all_trials, all 13
+    strategies, 7 bridge groups) by stage: the host seconds (after a
+    sync) of the emission, the bridge with its replay_trades counted
+    apart, the tax and the reduction; the device milliseconds (CUDA
+    events) of K7 (sort_bridge._merge_halves: its transposes and merge),
+    of the merge and valley sorts around it (the valley's head torch.sort
+    and gathers), of the restore torch.sort and of K8 (wash_matching);
+    and the device's busy share, as nvidia-smi samples it. (torch.profiler
+    spends minutes on the ~10^6 launches of the chunk's day loops.)"""
+    from letf_tpu_torch import reporting
+    from letf_tpu_torch.ops import sort_bridge as k7
+    from letf_tpu_torch.tax import device_bridge
+
+    stages, dev_ms, samples = {}, {}, []
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(replay_clock(stages))
+        stack.enter_context(device_clock(dev_ms, "K7", k7, "_merge_halves"))
+        stack.enter_context(device_clock(
+            dev_ms, None, device_bridge, "sort_bridge",
+            key=lambda a, kw: f"sort_bridge {kw.get('kind', 'merge')}"))
+        stack.enter_context(device_clock(dev_ms, "K8", device_bridge,
+                                         "wash_matching"))
+        stack.enter_context(busy_samples(samples))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        reporting.exact_post_tax_all_trials(
+            model, years, n, seed=3, chunk_size=n, device="cuda",
+            stage_seconds=stages)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    dev_ms["valley and merge sorts besides K7"] = (
+        dev_ms.get("sort_bridge valley", 0.0)
+        + dev_ms.get("sort_bridge merge", 0.0) - dev_ms["K7"])
+    log(f"breakdown of one {n} x {years}y exact-tax chunk: wall {wall:.3f} s,"
+        f" stages (s) {json.dumps(stages)}; device ms (CUDA events) "
+        f"{json.dumps(dev_ms)}; device busy (nvidia-smi utilization.gpu, "
+        f"{len(samples)} samples of 100 ms) mean "
+        f"{float(np.mean(samples)) if samples else float('nan'):.1f}%")
+    assert samples and dev_ms["K7"] > 0 and dev_ms["K8"] > 0, (samples,
+                                                               dev_ms)
 
 
 def general_channels(model_t, days: int):
@@ -1715,8 +1991,10 @@ def main():
     ctrs = counters()
     launches = {"pretax_report": phase_pretax(model, ctrs)}
     launches["default_report"], rep = phase_main_path(model, ctrs)
-    phase_tax_reference(model, rep)
+    shared = phase_tax_reference(model, rep)
     del rep
+    torch.cuda.empty_cache()
+    launches["exact_all"] = phase_exact_all(model, ctrs, shared)
     torch.cuda.empty_cache()
     launches["parametric_report"], rec["strategies"] = phase_parametric(
         model, model_t, ctrs)
@@ -1725,6 +2003,7 @@ def main():
     launches["headline"] = phase_headline(ctrs)
     phase_validation(ctrs)
     phase_profile(model)
+    phase_exact_breakdown(model)
     assert "jax" not in sys.modules and "letf_tpu" not in sys.modules
 
     kernels = []
@@ -1738,6 +2017,7 @@ def main():
             launches_path=path,
             launches_by_path={p: v[k] for p, v in launches.items()},
             **{x: r[x] for x in ("days", "plain_days", "fused", "ms_spread",
+                                 "shapes",
                                  "paired_ms_spread", "equal_ms_spread",
                                  "quarter_ms_spread", "report_ms_spread",
                                  "digest_match")

@@ -45,7 +45,7 @@ SIGNATURES = {
                                 _P, _P, _P, _P, _I, _I, _I, _I, _P, _P],
     "letf_compose": [_P, _P, _P, _P, _U, _U, _P, _P, _P, _P, _P, _P, _I, _I,
                      _P, _P, _P, _P, _P, _P],
-    "letf_merge": [_I, _P, _P, _I, _I, _I, _P],
+    "letf_merge": [_I, _P, _P, _P, _I, _U, _I, _I, _P, _P, _P],
     "letf_wash": [_P, _P, _P, _I, _I, _P, _P, _P, _P, _P],
     "letf_strategies": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P],
     "letf_gbm": [_U, _U, _I, _I, _I, _F, _F, _F, _F, _P, _P, _P],

@@ -11,9 +11,15 @@ Kinds, as in the reference:
 - ``"valley"``: the first half unsorted, the second ascending -- the first
   half is sorted with ``torch.sort(stable=True)``, then merged.
   ``head_payloads_zero`` says the first half's payloads are all zero, so
-  only key and sec are permuted there.
+  only key and sec are permuted there and the kernel reads no head
+  payload.
 - ``"sort"``: unsorted -- ``torch.sort(stable=True)`` alone.
 
+The kernel takes each array's two halves as separate [S, R] tensors (no
+concatenation), moves them trial-major, merges one trial a block in
+shared memory and moves the result back (see the source). It takes a half
+of at most 14,528 days with a secondary (``_merge_limit``; the
+reference's 50-year horizon is 12,600) and raises ``ValueError`` beyond.
 The reference uses ``lax.sort`` at exactly the two places the port uses
 ``torch.sort``; its power-of-two padding fed the TPU's bitonic network and
 is not needed. Keys: float32 non-negative (compared by their int32 bits, as
@@ -32,6 +38,7 @@ from letf_tpu_torch.ops import _build
 
 LAUNCHES = 0            # merge-kernel launches by sort_bridge on CUDA tensors
 MAX_ARRAYS = 8          # key + sec + six payloads per kernel launch
+MAX_SMEM = 232448       # shared bytes a block can use (csrc/merge.cu)
 _I64_MAGNITUDE = 0x7FFFFFFFFFFFFFFF
 
 
@@ -78,46 +85,78 @@ def sort_bridge_plain(key, sec, payloads=(), kind: str = "merge",
     return _result(key, sec, pays)
 
 
-def _merge_halves(key, sec, payloads=()):
-    """The K7 kernel on CUDA columns whose two halves are each ascending by
-    (key, sec); returns the merged (key, sec, *payloads)."""
+def _merge_limit(S: int, has_sec: bool):
+    """(shared bytes, permutation in shared memory) of the merge kernel at
+    S days a half, as csrc/merge.cu's merge_smem; ValueError beyond what
+    it takes."""
+    rows = (2 if has_sec else 1) * 2 * S * 4
+    if rows > MAX_SMEM or 2 * S > 65536:
+        raise ValueError(
+            f"sort_bridge: a half of {S} days needs {rows} bytes of shared "
+            f"memory for its key{' and sec' if has_sec else ''} rows; the "
+            f"merge kernel takes at most {MAX_SMEM} (and 32,768 days)")
+    return rows, rows + 4 * S <= MAX_SMEM
+
+
+def _merge_halves(heads, tails, has_sec: bool):
+    """The K7 kernel on CUDA columns: ``heads[c]`` and ``tails[c]`` the
+    two halves [S, R] of array c (key, sec when ``has_sec``, payloads),
+    each half ascending by (key, sec); a payload's head is None when it is
+    all zero. Returns the merged [2S, R] arrays."""
     global LAUNCHES
-    arrays = [key, *(() if sec is None else (sec,)), *payloads]
-    N, R = key.shape
-    if N % 2 or not 0 < len(arrays) <= MAX_ARRAYS:
-        raise ValueError(f"merge_halves: N {N} must be even, at most "
-                         f"{MAX_ARRAYS} arrays")
-    dev = key.device
+    S, R = tails[0].shape
+    if not 0 < len(tails) <= MAX_ARRAYS or len(heads) != len(tails):
+        raise ValueError(f"merge_halves: 1 to {MAX_ARRAYS} arrays")
+    if heads[0] is None or (has_sec and heads[1] is None):
+        raise ValueError("merge_halves: the key and sec heads are needed")
+    if -(-R // 32) > 65535:
+        raise ValueError(f"merge_halves: {R} columns, at most "
+                         f"{65535 * 32}")
+    _, perm_in_smem = _merge_limit(S, has_sec)
+    dev = tails[0].device
     checks = {}
-    for c, a in enumerate(arrays):
-        if a.shape != (N, R):
-            raise ValueError(f"merge_halves: array {c} {tuple(a.shape)}")
-        if a.dtype not in (torch.float32, torch.int32):
-            raise TypeError(f"merge_halves: array {c} has dtype {a.dtype}; "
-                            "the kernel moves 32-bit words")
-        checks[f"a{c}"] = (a, a.dtype)
+    for c, (h, t) in enumerate(zip(heads, tails)):
+        for part, a in (("head", h), ("tail", t)):
+            if a is None:
+                continue
+            if a.shape != (S, R):
+                raise ValueError(f"merge_halves: array {c} {part} "
+                                 f"{tuple(a.shape)}, expected {(S, R)}")
+            if a.dtype not in (torch.float32, torch.int32):
+                raise TypeError(f"merge_halves: array {c} has dtype "
+                                f"{a.dtype}; the kernel moves 32-bit words")
+            checks[f"{part}{c}"] = (a, a.dtype)
     _build.check_cuda("merge_halves", dev, **checks)
-    outs = [torch.empty_like(a) for a in arrays]
+    outs = [torch.empty((2 * S, R), dtype=t.dtype, device=dev)
+            for t in tails]
+    tm = torch.empty((len(tails), R, 2 * S), dtype=torch.int32, device=dev)
+    perm = (None if perm_in_smem else
+            torch.empty((R, 2 * S), dtype=torch.int16, device=dev))
+    head_zero = sum(1 << c for c, h in enumerate(heads) if h is None)
 
     def arr(ts):
-        return (ctypes.c_void_p * MAX_ARRAYS)(*[t.data_ptr() for t in ts])
+        return (ctypes.c_void_p * MAX_ARRAYS)(
+            *[0 if t is None else t.data_ptr() for t in ts])
 
-    ins_a, outs_a = arr(arrays), arr(outs)
+    ins_h, ins_t, outs_a = arr(heads), arr(tails), arr(outs)
     rc = _build.library().letf_merge(
-        len(arrays), ctypes.cast(ins_a, ctypes.c_void_p),
-        ctypes.cast(outs_a, ctypes.c_void_p), int(sec is not None), N // 2,
-        R, _build.stream_of(key))
+        len(tails), ctypes.cast(ins_h, ctypes.c_void_p),
+        ctypes.cast(ins_t, ctypes.c_void_p),
+        ctypes.cast(outs_a, ctypes.c_void_p), int(has_sec), head_zero, S, R,
+        tm.data_ptr(), 0 if perm is None else perm.data_ptr(),
+        _build.stream_of(tails[0]))
     _build.check(rc, "letf_merge")
     LAUNCHES += 1
-    return outs[0], (None if sec is None else outs[1]), \
-        outs[1 if sec is None else 2:]
+    return outs
 
 
 def sort_bridge(key, sec, payloads=(), kind: str = "merge",
                 head_payloads_zero: bool = False):
     """K7 on the device of the inputs (see the module docstring). key
     [N, R] float32 (non-negative) or int32, sec [N, R] int32 unique per
-    column or None, payloads [N, R] float32/int32."""
+    column or None, payloads [N, R] float32/int32. On CUDA tensors the
+    merge and valley kinds launch the kernel, which raises ``ValueError``
+    for a half longer than it takes (``_merge_limit``)."""
     if kind not in ("merge", "valley", "sort"):
         raise ValueError(f"sort_bridge: kind {kind!r}")
     if key.device.type == "cpu":
@@ -126,17 +165,21 @@ def sort_bridge(key, sec, payloads=(), kind: str = "merge",
         perm = _stable_perm(key, sec)
         key, sec, *pays = _permute([key, sec, *payloads], perm)
         return _result(key, sec, pays)
-    payloads = list(payloads)
+    N = key.shape[0]
+    if N % 2:
+        raise ValueError(f"sort_bridge: N {N} must be even")
+    S = N // 2
+    has_sec = sec is not None
+    arrays = [key, *((sec,) if has_sec else ()), *payloads]
+    tails = [a[S:] for a in arrays]
     if kind == "valley":
-        S = key.shape[0] // 2
-        perm = _stable_perm(key[:S], None if sec is None else sec[:S])
-        head = _permute([key[:S], None if sec is None else sec[:S]]
-                        + ([] if head_payloads_zero
-                           else [p[:S] for p in payloads]), perm)
-        key = torch.cat([head[0], key[S:]])
-        sec = None if sec is None else torch.cat([head[1], sec[S:]])
-        if not head_payloads_zero:
-            payloads = [torch.cat([h, p[S:]])
-                        for h, p in zip(head[2:], payloads)]
-    key, sec, pays = _merge_halves(key, sec, payloads)
-    return _result(key, sec, pays)
+        _merge_limit(S, has_sec)
+        perm = _stable_perm(key[:S], sec[:S] if has_sec else None)
+        heads = _permute([key[:S], *((sec[:S],) if has_sec else ())]
+                         + ([None] * len(payloads) if head_payloads_zero
+                            else [p[:S] for p in payloads]), perm)
+    else:
+        heads = [a[:S] for a in arrays]
+    key, *rest = _merge_halves(heads, tails, has_sec)
+    sec = rest.pop(0) if has_sec else None
+    return _result(key, sec, rest)

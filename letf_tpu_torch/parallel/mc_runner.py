@@ -5,7 +5,8 @@ Ports of ``letf_tpu/parallel/mc_runner.py``: ``_trial_layout`` (``:385``),
 ``run_monte_carlo`` (``:396``), ``_mc_chunk_body`` (``:63-120``: the slab
 chunk, or ``general_chunk``), ``emit_trade_lists`` (``:686``) and
 ``monte_carlo_report`` (``:744``) with ``tax_mode="sampled"`` (the default:
-post-tax tables from reporting.sampled_post_tax_tables) or ``"none"``.
+post-tax tables from reporting.sampled_post_tax_tables), ``"exact_all"``
+(reporting.exact_post_tax_all_trials: every trial taxed) or ``"none"``.
 
 Engine modes: ``institutional_v1`` runs the slab chunk (kernels K1, K2, K3)
 and, for emission, the batched general path (K1, K2', K5). ``parametric``,
@@ -97,12 +98,7 @@ def _engine_mode(engine_mode: Optional[str], bootstrap_pools=None,
         raise NotImplementedError(
             "legacy_hybrid with bootstrap pools is the block bootstrap, not "
             "ported yet: ROADMAP section 1 item 15")
-    if tax_mode == "exact_all":
-        raise NotImplementedError(
-            "tax_mode='exact_all' is not ported yet: the exact-tax bridge "
-            "over every trial is ROADMAP section 1 item 13; pass "
-            "tax_mode='sampled' or 'none'")
-    if tax_mode not in ("sampled", "none"):
+    if tax_mode not in ("sampled", "exact_all", "none"):
         raise ValueError(f"tax_mode must be sampled/exact_all/none, "
                          f"got {tax_mode!r}")
     return engine_mode
@@ -332,9 +328,13 @@ def monte_carlo_report(model: SimModel | Dict | None, time_horizon: float,
     ``tax_mode="sampled"`` (the default) adds the post-tax tables of the
     13 taxable strategies under ``strategies[sid]["post_tax"]`` and
     ``post_tax_seconds``, ``tax_mode`` and ``tax_config`` at the top
-    level; ``"none"`` is the pre-tax report alone. The parameters are the
-    reference's, in its order; ``chunks_per_dispatch`` is a no-op on one
-    device and a non-None ``mesh`` raises."""
+    level; ``"exact_all"`` gives the same keys from every trial's exact
+    tax (``reporting.exact_post_tax_all_trials``, called as the reference
+    calls it: chunks of at most 4,096 trials, the start method and
+    pairing of the configuration); ``"none"`` is the pre-tax report
+    alone. The parameters are
+    the reference's, in its order; ``chunks_per_dispatch`` is a no-op on
+    one device and a non-None ``mesh`` raises."""
     _check_single_device(mesh)
     mode = _engine_mode(engine_mode, tax_mode=tax_mode)
     run = _Run(model, time_horizon, num_simulations, seed, chunk_size,
@@ -385,15 +385,33 @@ def monte_carlo_report(model: SimModel | Dict | None, time_horizon: float,
             "ruin_frac": float(host["ruin_frac"][k2]),
         }
 
-    if tax_mode == "sampled":
+    if tax_mode != "none":
         from letf_tpu_torch import reporting
 
         t_tax = time.perf_counter()
-        post = reporting.sampled_post_tax_tables(
-            run, cat["final_wealth"], time_horizon, tuple(percentiles),
-            tax_config=tax_config, stage_seconds=stage_seconds)
-        for sid, entry in post.items():
-            report["strategies"][sid]["post_tax"] = entry
+        if tax_mode == "sampled":
+            post = reporting.sampled_post_tax_tables(
+                run, cat["final_wealth"], time_horizon, tuple(percentiles),
+                tax_config=tax_config, stage_seconds=stage_seconds)
+            for sid, entry in post.items():
+                report["strategies"][sid]["post_tax"] = entry
+        else:
+            exact = reporting.exact_post_tax_all_trials(
+                model, time_horizon, n, tax_config=tax_config, seed=seed,
+                chunk_size=min(cs, 4096), percentiles=tuple(percentiles),
+                device=device, stage_seconds=stage_seconds)
+            for sid, entry in exact.items():
+                report["strategies"][sid]["post_tax"] = {
+                    "wealth": {f"p{p}": entry[f"post_tax_p{p}"]
+                               for p in percentiles},
+                    "cagr": {f"p{p}": float(
+                        (max(entry[f"post_tax_p{p}"], 1e-12) / cap)
+                        ** (1.0 / time_horizon) - 1.0)
+                        for p in percentiles},
+                    "median_tax": entry["median_tax"],
+                    "n_sampled": entry["n_trials"],
+                    "method": "exact-all device bridge (every trial)",
+                }
         report["post_tax_seconds"] = round(time.perf_counter() - t_tax, 3)
         report["tax_mode"] = tax_mode
         report["tax_config"] = {

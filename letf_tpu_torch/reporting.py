@@ -1,4 +1,4 @@
-"""The report's sampled post-tax tables.
+"""The report's post-tax tables: sampled, and exact over every trial.
 
 Port of ``letf_tpu/reporting.py::sampled_post_tax_tables``, the reference's
 tax amortization (reporting.py:455-509) at report scale: per taxable
@@ -9,7 +9,12 @@ bridge (kernels K7 and K8) and the vectorized tax for each sample, in two
 bridge groups (the 12 strategies that trade TQQQ alone, then S8, the only
 one that trades the SPY leg); the tax spread over all N trials by linear
 interpolation on the sampled wealths; post-tax fans and win rates vs SPY
-reduced on the device.
+reduced on the device. And of ``exact_post_tax_all_trials`` on one device
+(``tax_mode="exact_all"``): every trial taxed through the same bridge,
+chunk by chunk, with the strategies folded into batches of at most
+``FOLD_ROWS`` rows, any lot election, and a per-trial finiteness gate
+(``bridge_activity_tax``); its percentiles reduce on the host, as the
+reference's do.
 
 The port keeps its own copies of the reference's tax configuration
 (``DEFAULT_TAX_CONFIG``, ``MAX_TAX_SIMS``, ``_income_kwargs``) and of the
@@ -24,20 +29,26 @@ CPU, float32 on the card, as on the TPU).
 from __future__ import annotations
 
 import time
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 
 from letf_tpu_torch import config as cfg
 from letf_tpu_torch.income import simulate_wired_income_path
-from letf_tpu_torch.tax.device_bridge import yearly_activity_from_emission
+from letf_tpu_torch.tax.device_bridge import (
+    ELECTION_METHODS,
+    max_buy_events,
+    yearly_activity_from_emission,
+)
 from letf_tpu_torch.tax.vectorized import total_tax_all_trials
 from letf_tpu_torch.utils.device import glue_dtype
 
 # The reference's sampled-tax budget and default tax configuration
-# (letf_tpu/reporting.py:42-51).
+# (letf_tpu/reporting.py:42-51), and the exact path's fold: at most this
+# many rows (trials x strategies) in one bridge batch (reporting.py:517).
 MAX_TAX_SIMS = 50
+FOLD_ROWS = 8192
 DEFAULT_TAX_CONFIG = {
     "state": "CA", "state_name": "California",
     "ordinary_income": 150000, "filing_status": "single",
@@ -65,17 +76,22 @@ def interp(w, xp, fp):
     return f0 + t * (f1 - f0)
 
 
-def bridge_tax(stacked, assets: tuple, n_years: int, income, tax_kw: Dict,
-               stage_seconds: Optional[Dict] = None):
+def bridge_activity_tax(stacked, assets: tuple, n_years: int, income,
+                        tax_kw: Dict, method: str = "FIFO",
+                        lot_capacity: Optional[int] = None,
+                        stage_seconds: Optional[Dict] = None):
     """Exact tax of each journal column of one bridge batch: ``stacked``
     the (alloc, value, price, asset) [S, R] emission columns, ``assets``
-    the bridge assets the batch may trade. Raises when a skipped asset
-    sold shares or a tax is not finite. Returns total tax [R];
-    ``stage_seconds`` accumulates the "bridge" and "tax" seconds."""
+    the bridge assets the batch may trade, ``method`` / ``lot_capacity``
+    the lot election. Raises when a skipped asset sold shares. Returns
+    (total tax [R], ok [R]: the trial's yearly activity and tax are all
+    finite); ``stage_seconds`` accumulates the "bridge" and "tax"
+    seconds."""
     dev = stacked[0].device
     t0 = time.perf_counter()
     activity, n_trades, viol = yearly_activity_from_emission(
-        *stacked, n_years=n_years, assets=assets)
+        *stacked, n_years=n_years, method=method, lot_capacity=lot_capacity,
+        assets=assets)
     if bool(viol):
         raise RuntimeError("a statically-skipped bridge asset sold shares "
                            f"(assets {assets})")
@@ -83,11 +99,22 @@ def bridge_tax(stacked, assets: tuple, n_years: int, income, tax_kw: Dict,
     total = total_tax_all_trials(
         activity[..., :4], income, cfg.INITIAL_CAPITAL,
         n_trades.to(activity.dtype) / n_years, **tax_kw)["total_tax"]
-    if not (bool(torch.isfinite(activity).all())
-            and bool(torch.isfinite(total).all())):
+    # The tax engine propagates non-finite inputs, so the activity and
+    # the total are both checked (a -inf gain can net to a finite tax).
+    ok = torch.isfinite(activity).all(dim=(1, 2)) & torch.isfinite(total)
+    _mark(stage_seconds, "tax", t0, dev)
+    return total, ok
+
+
+def bridge_tax(stacked, assets: tuple, n_years: int, income, tax_kw: Dict,
+               stage_seconds: Optional[Dict] = None):
+    """``bridge_activity_tax`` under FIFO that raises on any non-finite
+    trial (the sampled tables' gate). Returns total tax [R]."""
+    total, ok = bridge_activity_tax(stacked, assets, n_years, income,
+                                    tax_kw, stage_seconds=stage_seconds)
+    if not bool(ok.all()):
         raise FloatingPointError("non-finite bridge activity or tax: "
                                  "upstream emission/bridge defect")
-    _mark(stage_seconds, "tax", t0, dev)
     return total
 
 
@@ -207,4 +234,139 @@ def sampled_post_tax_tables(run, fw, time_horizon: int, percentiles,
             "method": "sampled-exact device bridge + on-device interp "
                       f"(<= {m} replayed trials/strategy)",
         }
+    return out
+
+
+def _bridge_groups(strategy_ids, n_here: int):
+    """The strategies folded into bridge batches of at most FOLD_ROWS rows
+    (trials x strategies), S8 alone: it is the only one that trades the
+    SPY leg. Returns [(sids, bridge assets)]."""
+    gsz = max(1, FOLD_ROWS // max(n_here, 1))
+    others = [s for s in strategy_ids if s != "S8"]
+    groups = [(others[g0:g0 + gsz], (0,))
+              for g0 in range(0, len(others), gsz)]
+    if "S8" in strategy_ids:
+        groups.append((["S8"], (0, 1)))
+    return groups
+
+
+def exact_post_tax_all_trials(model, time_horizon: int,
+                              num_simulations: int,
+                              tax_config: Optional[Dict] = None,
+                              strategy_ids: Optional[List[str]] = None,
+                              seed: int = 0, chunk_size: int = 4096,
+                              percentiles=(10, 25, 50, 75, 90),
+                              lot_method: str = "FIFO",
+                              on_nonfinite: str = "raise", mesh=None, *,
+                              device="cuda",
+                              stage_seconds: Optional[Dict] = None,
+                              trial_values: Optional[Dict] = None) -> Dict:
+    """Exact post-tax percentiles of every trial (the reference's
+    ``exact_post_tax_all_trials``, single device): chunks of at most
+    ``chunk_size`` trials re-run on the general path with journal
+    emission (start method, antithetic pairing and trial layout from the
+    configuration), the strategies folded into bridge batches
+    (``_bridge_groups``), the device bridge (kernels K7 and K8) and the
+    vectorized tax for every trial.
+
+    ``lot_method``: FIFO or one of the six elected orders, whose lot
+    capacity is max(256, the chunk's most buy events rounded up to 256).
+    ``on_nonfinite``: "raise" fails on a trial with non-finite yearly
+    activity or tax, naming the strategy and chunk; "record" drops such
+    trials from the percentiles and counts them in ``nonfinite_trials``.
+    A ``mesh`` raises: multi-device runs are ROADMAP section 1 item 17.
+    ``stage_seconds`` receives the seconds of "emission", "bridge", "tax"
+    and "reduce"; ``trial_values``, when given, receives {sid: (pre-tax,
+    post-tax)} numpy vectors of the kept trials, which the percentiles
+    reduce. Returns {sid: {n_trials, nonfinite_trials, median_tax,
+    exact_all_trials, pre_tax_pXX, post_tax_pXX}}."""
+    from letf_tpu_torch.parallel.mc_runner import (
+        _check_single_device,
+        _Run,
+        _trial_layout,
+        general_chunk,
+    )
+
+    if on_nonfinite not in ("raise", "record"):
+        raise ValueError(f"on_nonfinite must be 'raise' or 'record', "
+                         f"got {on_nonfinite!r}")
+    if lot_method not in ELECTION_METHODS:
+        raise ValueError(f"lot_method must be one of {ELECTION_METHODS}, "
+                         f"got {lot_method!r}")
+    _check_single_device(mesh)
+    if strategy_ids is None:
+        strategy_ids = list(cfg.TAXABLE_IDS)
+    run = _Run(model, time_horizon, num_simulations, seed, chunk_size,
+               device=device)
+    dev = run.device
+    dt = glue_dtype(dev)
+    n = run.num_simulations
+    income, tax_kw = tax_setup(tax_config, time_horizon)
+    ids, anti = _trial_layout(n, run.use_antithetic)
+    pre = {sid: [] for sid in strategy_ids}
+    post = {sid: [] for sid in strategy_ids}
+    nonfinite = {sid: 0 for sid in strategy_ids}
+    for lo in range(0, n, run.chunk_size):
+        hi = min(n, lo + run.chunk_size)
+        n_here = hi - lo
+        t0 = time.perf_counter()
+        summ, emission = general_chunk(run, ids[lo:hi], anti[lo:hi],
+                                       apply_costs=True)
+        emission = [e if e.dtype == torch.int8 else e.to(dt)
+                    for e in emission]
+        fw = summ["final_wealth"]
+        del summ
+        _mark(stage_seconds, "emission", t0, dev)
+        lot_cap = None
+        if lot_method != "FIFO":
+            worst = max(max_buy_events(
+                *(e[:, :, cfg.TAXABLE_IDS.index(sid)] for e in emission))
+                for sid in strategy_ids)
+            lot_cap = max(256, -(-worst // 256) * 256)
+        for gsids, assets in _bridge_groups(strategy_ids, n_here):
+            cols = torch.as_tensor([cfg.TAXABLE_IDS.index(s) for s in gsids],
+                                   device=dev)
+            G = len(gsids)
+            stacked = [e[:, :, cols].reshape(e.shape[0], n_here * G)
+                       for e in emission]
+            total, ok = bridge_activity_tax(
+                stacked, assets, time_horizon, income, tax_kw, lot_method,
+                lot_cap, stage_seconds)
+            del stacked
+            t0 = time.perf_counter()
+            total = total.reshape(n_here, G).cpu().numpy()
+            ok = ok.reshape(n_here, G).cpu().numpy()
+            for gi, sid in enumerate(gsids):
+                w = fw[:, cfg.STRATEGY_INDEX[sid]].cpu().numpy()
+                bad = ~ok[:, gi]
+                if bad.any():
+                    if on_nonfinite == "raise":
+                        raise FloatingPointError(
+                            f"{sid}: {int(bad.sum())} trial(s) with "
+                            "non-finite yearly activity or tax in chunk "
+                            f"[{lo}, {hi}): upstream emission/bridge "
+                            "defect (pass on_nonfinite='record' to drop "
+                            "and count)")
+                    nonfinite[sid] += int(bad.sum())
+                pre[sid].append(w[~bad])
+                # Drag capped at 100%, as the reference's tables.
+                post[sid].append(np.maximum(w[~bad] - total[~bad, gi], 0.0))
+            _mark(stage_seconds, "reduce", t0, dev)
+        del emission, fw
+
+    t0 = time.perf_counter()
+    out = {}
+    for sid in strategy_ids:
+        w = np.concatenate(pre[sid])
+        pw = np.concatenate(post[sid])
+        if trial_values is not None:
+            trial_values[sid] = (w, pw)
+        entry = {"n_trials": len(w), "nonfinite_trials": nonfinite[sid],
+                 "median_tax": float(np.median(w - pw)),
+                 "exact_all_trials": True}
+        for p in percentiles:
+            entry[f"pre_tax_p{p}"] = float(np.percentile(w, p))
+            entry[f"post_tax_p{p}"] = float(np.percentile(pw, p))
+        out[sid] = entry
+    _mark(stage_seconds, "reduce", t0, dev)
     return out

@@ -1,23 +1,28 @@
-"""Device trade -> tax bridge, FIFO (journal emission -> yearly activity).
+"""Device trade -> tax bridge (journal emission -> yearly activity).
 
-Port of the fused FIFO form of ``letf_tpu/tax/device_bridge.py``:
-``replay_trades`` (with the ``_PRICE_FLOOR`` share-count guard),
-``_packed_pos``, ``_prefix_cost`` (``_prefix_cost_pre`` / ``_fill``), the
-wash-sale matching (kernel K8, ``ops/wash.py``), ``_wash_unload``,
-``_fifo_year_buckets_merge`` (``_fifo_merge_pre`` / ``_post``),
-``_asset_yearly_activity(method="FIFO")`` and
-``yearly_activity_from_emission``. Its three column sorts go through
-``ops/sort_bridge.sort_bridge`` (kernel K7 for the merge and valley kinds).
+Port of ``letf_tpu/tax/device_bridge.py``: ``replay_trades`` (with the
+``_PRICE_FLOOR`` share-count guard), ``_packed_pos``, ``_prefix_cost``
+(``_prefix_cost_pre`` / ``_fill``), the wash-sale matching (kernel K8,
+``ops/wash.py``), ``_wash_unload``, the FIFO buckets on the merged share
+coordinate (``_fifo_year_buckets_merge``: ``_fifo_merge_pre`` / ``_post``),
+the banded and dense FIFO oracles (``_fifo_year_buckets``,
+``_fifo_year_buckets_dense`` with ``_pair_buckets``), the six elected lot
+orders (``_election_key``, ``_election_year_buckets``), ``max_buy_events``,
+``_asset_yearly_activity`` and ``yearly_activity_from_emission`` with their
+``method`` / ``lot_capacity`` dispatch. FIFO runs the merged form; its
+column sorts go through ``ops/sort_bridge.sort_bridge`` (kernel K7 for the
+merge and valley kinds). The oracles serve the tests, as in the reference.
 
 Layout: per-day tensors are ``[S, B]`` and the merged share coordinate is
 ``[2S, B]`` (days first, trials contiguous); the yearly activity returns as
 ``[B, Y, 5]`` (st_gains, st_losses, lt_gains, lt_losses,
-wash_disallowed), as the reference's does. The suffix fills of the
+wash_disallowed), as the reference's does. The elections' fixed-capacity
+lot arrays are ``[B, L]``, as the reference's. The suffix fills of the
 reference's associative scans are a nearest-index search (reverse cummin)
-plus a gather: each fill picks one element's value, so the result is the
+plus a gather, and the banded oracle gathers its lot bands where the
+reference rolled them: each picks the same elements, so the result is the
 same. The unit-staged drive (``yearly_activity_staged`` / ``_units``) that
-worked around a TPU compile helper is not ported; lot elections and the
-banded and dense oracles wait for the exact-tax item (ROADMAP 1.13).
+worked around a TPU compile helper is not ported.
 """
 
 from __future__ import annotations
@@ -240,9 +245,14 @@ def _fifo_year_buckets_merge(cs, price, cb, basis_ps, orig, anybuy,
     return _fifo_merge_post(key, packed >= _SEC_TAG, va, vb, n_years)
 
 
-def _asset_yearly_activity(buy_q, sell_m, price, n_years: int):
-    """FIFO passes 1 + 2 for one asset: [S, B] buy shares, sell shares and
-    prices -> [B, Y, 5]."""
+def _asset_yearly_activity(buy_q, sell_m, price, n_years: int,
+                           method: str = "FIFO",
+                           lot_capacity: int | None = None):
+    """Passes 1 + 2 for one asset: [S, B] buy shares, sell shares and
+    prices -> [B, Y, 5]. ``method``: the lot election; FIFO runs the
+    merged form, the six elected orders the day scan over fixed-capacity
+    lot arrays (``_election_year_buckets``), which needs ``lot_capacity``
+    >= the most buy events of a trial."""
     cb = torch.cumsum(buy_q, dim=0)
     cb_prev = cb - buy_q
     take = torch.minimum(sell_m, cb[-1:])
@@ -252,17 +262,225 @@ def _asset_yearly_activity(buy_q, sell_m, price, n_years: int):
     dis, rep_off, has = wash_matching(loss1, sell_m, buy_q)
     cs, basis_ps, orig, anybuy = _wash_unload(dis, rep_off, has, buy_q,
                                               sell_m, price)
-    return _fifo_year_buckets_merge(cs, price, cb, basis_ps, orig, anybuy,
-                                    n_years)
+    if method == "FIFO":
+        return _fifo_year_buckets_merge(cs, price, cb, basis_ps, orig,
+                                        anybuy, n_years)
+    if method not in ELECTION_METHODS:
+        raise ValueError(f"method must be one of {ELECTION_METHODS}, got "
+                         f"{method!r}")
+    if lot_capacity is None:
+        raise ValueError(f"method={method} requires lot_capacity")
+    return _election_year_buckets(buy_q, sell_m, price, basis_ps, orig,
+                                  anybuy, n_years, method, lot_capacity)
+
+
+def _pair_buckets(cs_t, csp_t, p_t, day_t, abuy_t, cbp_b, q_b, bp_b, or_b,
+                  lot_mask):
+    """Bucketed gains of one (sell tile x lot band) pair block: sell-side
+    [Jt, B] and lot-side [L, B] arrays, lot_mask [L, B] -> per sell
+    [Jt, B, 5] (st_g, st_l, lt_g, lt_l, wash)."""
+    cb_b = cbp_b + q_b
+    amt = (torch.minimum(cs_t[:, None], cb_b[None])
+           - torch.maximum(csp_t[:, None], cbp_b[None]))
+    amt = torch.clamp_min(amt, 0.0) * lot_mask[None]               # [J, L, B]
+    gl = amt * (p_t[:, None] - bp_b[None])
+    lt = (day_t[:, None] - or_b[None]) > _LT_DAYS
+    wash = (gl < 0) & abuy_t[:, None]
+    return torch.stack([
+        torch.where(~wash & ~lt & (gl > 0), gl, 0.0).sum(1),
+        torch.where(~wash & ~lt & (gl < 0), -gl, 0.0).sum(1),
+        torch.where(~wash & lt & (gl > 0), gl, 0.0).sum(1),
+        torch.where(~wash & lt & (gl < 0), -gl, 0.0).sum(1),
+        torch.where(wash, -gl, 0.0).sum(1)], dim=-1)
+
+
+def _year_sum(per_day, day0: int, n_years: int):
+    """[J, B, 5] per-day buckets of days day0 .. day0 + J - 1 -> [B, Y, 5]
+    summed by tax year (days past the last year dropped)."""
+    days = torch.arange(day0, day0 + per_day.shape[0],
+                        device=per_day.device)
+    onehot = ((days // _DAYS_PER_YEAR)[:, None]
+              == torch.arange(n_years, device=per_day.device)[None, :])
+    return torch.einsum("jbk,jy->byk", per_day, onehot.to(per_day.dtype))
+
+
+def _fifo_year_buckets_dense(cs, cs_prev, price, cb, cb_prev, buy_q,
+                             basis_ps, orig, anybuy, n_years: int):
+    """The O(S^2) triangular pairing of every sell with every earlier lot
+    (the test oracle of the banded and merged forms)."""
+    S, B = price.shape
+    days = torch.arange(S, device=price.device)
+    out = torch.zeros((B, n_years, 5), dtype=price.dtype,
+                      device=price.device)
+    for j0 in range(0, S, _DAYS_PER_YEAR):
+        j1 = min(j0 + _DAYS_PER_YEAR, S)
+        per_sell = _pair_buckets(
+            cs[j0:j1], cs_prev[j0:j1], price[j0:j1],
+            days[j0:j1, None].expand(j1 - j0, B), anybuy[j0:j1],
+            cb_prev[:j1], buy_q[:j1], basis_ps[:j1], orig[:j1],
+            torch.ones((j1, B), dtype=price.dtype, device=price.device))
+        out = out + _year_sum(per_sell, j0, n_years)
+    return out
+
+
+def _fifo_year_buckets(cs, cs_prev, price, cb, cb_prev, buy_q, basis_ps,
+                       orig, anybuy, n_years: int, band: int = 768):
+    """The banded FIFO frontier (the merged form's test oracle): each
+    year tile of sells pairs with the band of L lots from the first lot
+    not fully consumed before the tile, and further L-lot levels run while
+    some trial's frontier passes the band's end, so a sell that consumes
+    more than L outstanding lots stays exact."""
+    S, B = price.shape
+    dt = price.dtype
+    dev = price.device
+    L = min(band, S)
+    max_levels = -(-S // L)
+    lots = torch.stack([cb_prev, buy_q, basis_ps, orig.to(dt)])  # [4, S, B]
+    out = torch.zeros((B, n_years, 5), dtype=dt, device=dev)
+    for j0 in range(0, S, _DAYS_PER_YEAR):
+        j1 = min(j0 + _DAYS_PER_YEAR, S)
+        cs_t, csp_t, p_t = cs[j0:j1], cs_prev[j0:j1], price[j0:j1]
+        abuy_t = anybuy[j0:j1]
+        day_t = torch.arange(j0, j1, device=dev)[:, None].expand(j1 - j0, B)
+        # Lots fully consumed before the tile's first sell: cb <= csp.
+        p0 = (cb <= csp_t[:1]).sum(0)                                  # [B]
+
+        def level_block(lvl):
+            idx = p0[None, :] + lvl * L + torch.arange(L, device=dev)[:, None]
+            band_l = torch.gather(lots, 1, idx.clamp_max(S - 1)[None]
+                                  .expand(4, L, B))
+            lot_mask = (idx < j1).to(dt)      # FIFO: no lots past the tile
+            return _pair_buckets(cs_t, csp_t, p_t, day_t, abuy_t,
+                                 band_l[0], band_l[1], band_l[2], band_l[3],
+                                 lot_mask)
+
+        def more_needed(lvl):
+            # A sell reaches past the band iff its frontier exceeds the
+            # band-end lot's cumulative bought shares (and lots remain).
+            end = p0 + (lvl + 1) * L - 1
+            has_more = end + 1 < j1
+            at = end.clamp_max(S - 1)[None]
+            cb_end = (torch.gather(cb_prev, 0, at)
+                      + torch.gather(buy_q, 0, at))[0]
+            return bool((has_more & (cs_t[-1] > cb_end)).any())
+
+        per_sell = level_block(0)
+        lvl = 1
+        need = more_needed(0)
+        while need and lvl < max_levels:
+            per_sell = per_sell + level_block(lvl)
+            need = more_needed(lvl)
+            lvl += 1
+        out = out + _year_sum(per_sell, j0, n_years)
+    return out
+
+
+ELECTION_METHODS = ("FIFO", "LIFO", "HIFO", "LOFO", "LTFO", "STFO",
+                    "MINTAX")
+_MINTAX_ST_RATE = 0.37     # the reference's lot_selection defaults
+_MINTAX_LT_RATE = 0.20
+
+
+def _election_key(method: str, slot_t, slot_basis, slot_orig, t: int,
+                  price_t, S: int):
+    """Per-lot ascending sort key [B, L] of the elected consumption order;
+    ties resolve to the buy order through a stable sort."""
+    f = price_t.dtype
+    tf = slot_t.to(f)
+    if method == "LIFO":
+        return -tf
+    if method == "HIFO":
+        return -slot_basis
+    if method == "LOFO":
+        return slot_basis
+    is_lt = (t - slot_orig) > _LT_DAYS
+    zero = torch.zeros((), dtype=f, device=price_t.device)
+    big = torch.full((), 4 * S, dtype=f, device=price_t.device)
+    if method == "LTFO":
+        # LT lots first, each group by holding desc == original day asc.
+        return torch.where(is_lt, zero, big) + slot_orig.to(f)
+    if method == "STFO":
+        # ST lots first, each group by holding asc == original day desc.
+        return torch.where(is_lt, big, zero) + (S - slot_orig.to(f))
+    if method == "MINTAX":
+        gain_ps = price_t[:, None] - slot_basis
+        st = torch.full((), _MINTAX_ST_RATE, dtype=f, device=price_t.device)
+        lt = torch.full((), _MINTAX_LT_RATE, dtype=f, device=price_t.device)
+        rate = torch.where(gain_ps >= 0, torch.where(is_lt, lt, st), st)
+        return gain_ps * rate
+    return tf                                                       # FIFO
+
+
+def _election_year_buckets(buy_q, sell_m, price, basis_ps, orig, anybuy,
+                           n_years: int, method: str, L: int):
+    """Elected-order lot consumption: a day loop over fixed-capacity lot
+    arrays [B, L] (slot k = the trial's k-th buy event, the host tracker's
+    positions-list order). Each day the lots bought before it and above
+    dust are sorted by the election key (stable), consumed greedily along
+    that order by a cumulative clip, and their gains bucketed by term,
+    sign and wash flag; the days are summed by tax year."""
+    S, B = price.shape
+    dt = price.dtype
+    dev = price.device
+    has = (buy_q > _MIN_SHARES).T                                  # [B, S]
+    ordv = torch.cumsum(has.to(torch.int64), dim=1) - 1
+    slot = torch.where(has & (ordv < L), ordv, L)   # others land past L
+
+    def scat(val, fill):
+        base = torch.full((B, L + 1), fill, dtype=val.dtype, device=dev)
+        return base.scatter_(1, slot, val)[:, :L]
+
+    day_grid = torch.arange(S, dtype=torch.int32, device=dev)[None].expand(
+        B, S)
+    slot_t = scat(day_grid, S)                       # buy day (S = unused)
+    rem = scat(buy_q.T, 0.0)
+    slot_basis = scat(basis_ps.T, 0.0)
+    slot_orig = scat(orig.T.to(torch.int32), S)
+    per_day = torch.empty((S, B, 5), dtype=dt, device=dev)
+    inf = torch.full((), float("inf"), dtype=dt, device=dev)
+    for t in range(S):
+        sell_t, price_t, any_t = sell_m[t], price[t], anybuy[t]
+        live = (slot_t < t) & (rem > _MIN_SHARES)  # today's buy not sellable
+        key = _election_key(method, slot_t, slot_basis, slot_orig, t,
+                            price_t, S)
+        key = torch.where(live, key.to(dt), inf)
+        order = torch.sort(key, dim=1, stable=True).indices
+        rem_s = torch.gather(rem * live, 1, order)
+        cum = torch.cumsum(rem_s, dim=1)
+        cons_s = torch.clamp(sell_t[:, None] - (cum - rem_s),
+                             min=torch.zeros_like(rem_s), max=rem_s)
+        consumed = torch.empty_like(cons_s).scatter_(1, order, cons_s)
+        gl = consumed * (price_t[:, None] - slot_basis)
+        lt = (t - slot_orig) > _LT_DAYS
+        wash = (gl < 0) & any_t[:, None]
+        act = consumed > 0
+        per_day[t] = torch.stack([
+            torch.where(act & ~wash & ~lt & (gl > 0), gl, 0.0).sum(-1),
+            torch.where(act & ~wash & ~lt & (gl < 0), -gl, 0.0).sum(-1),
+            torch.where(act & ~wash & lt & (gl > 0), gl, 0.0).sum(-1),
+            torch.where(act & ~wash & lt & (gl < 0), -gl, 0.0).sum(-1),
+            torch.where(act & wash, -gl, 0.0).sum(-1)], dim=-1)
+        rem = rem - consumed
+    return _year_sum(per_day, 0, n_years)
+
+
+def max_buy_events(tj_alloc, tj_value, tj_price, tj_asset) -> int:
+    """The most buy events of one (trial, asset) in an emission: the
+    smallest safe ``lot_capacity`` of the elected orders (a host sync)."""
+    tr = replay_trades(tj_alloc, tj_value, tj_price, tj_asset)
+    return int((tr["buy_sh"] > _MIN_SHARES).sum(dim=1).max())
 
 
 def yearly_activity_from_emission(tj_alloc, tj_value, tj_price, tj_asset,
-                                  n_years: int, assets: tuple):
+                                  n_years: int, assets: tuple,
+                                  method: str = "FIFO",
+                                  lot_capacity: int | None = None):
     """One strategy column's emission ([S, B] each) -> ([B, Y, 5] yearly
     activity, trade counts [B], viol). ``assets``: the indices into the
     bridge assets (0 = TQQQ, 1 = SPY) this batch can trade; the others are
     skipped, and ``viol``, a 0-dim bool, is True iff a skipped asset sold
-    shares (the caller must refuse the result then)."""
+    shares (the caller must refuse the result then). ``method`` /
+    ``lot_capacity``: the lot election (``_asset_yearly_activity``)."""
     tr = replay_trades(tj_alloc, tj_value, tj_price, tj_asset)
     out = torch.zeros((tj_alloc.shape[1], n_years, 5), dtype=tj_alloc.dtype,
                       device=tj_alloc.device)
@@ -271,8 +489,9 @@ def yearly_activity_from_emission(tj_alloc, tj_value, tj_price, tj_asset,
         if k not in assets:
             viol = viol | (tr["sell_sh"][k] > _MIN_SHARES).any()
             continue
-        out = out + _asset_yearly_activity(tr["buy_sh"][k], tr["sell_sh"][k],
-                                           tr["price"], n_years)
+        out = out + _asset_yearly_activity(
+            tr["buy_sh"][k], tr["sell_sh"][k], tr["price"], n_years,
+            method=method, lot_capacity=lot_capacity)
     n_trades = ((tr["buy_sh"] > 0) | (tr["sell_sh"] > 0)).sum(
         dim=(0, 1), dtype=torch.int32)
     return out, n_trades, viol

@@ -439,6 +439,70 @@ def test_sort_bridge_kernel_bitwise(dev, kind):
         assert torch.equal(a, b)
 
 
+@pytest.mark.parametrize("R,half,n_pay,kind", [
+    (1, 1, 0, "merge"), (33, 5, 3, "valley"), (650, 7560, 2, "merge"),
+    (97, 7560, 4, "valley"), (64, 12600, 2, "merge")])
+def test_sort_bridge_kernel_shapes(dev, R, half, n_pay, kind):
+    """K7 bitwise its plain version at ragged shapes, the bridge's 30-year
+    half and the 50-year one (the permutation in device scratch there);
+    the valley kind with zero head payloads, as the bridge calls it."""
+    from letf_tpu_torch.ops import sort_bridge as k7
+
+    g = torch.Generator(device=dev).manual_seed(R + half)
+    N = 2 * half
+    key = torch.round(torch.randn((N, R), generator=g, device=dev).abs()
+                      * 4) / 4
+    key[::7] = torch.where(key[::7] > 1, float("inf"), key[::7])
+    key[half:] = torch.sort(key[half:], dim=0).values
+    if kind == "merge":
+        key[:half] = torch.sort(key[:half], dim=0).values
+    pos = torch.arange(N, device=dev, dtype=torch.int32)
+    sec = torch.where(pos >= half, pos | (1 << 24), pos)[:, None].expand(
+        N, R).contiguous()
+    pays = tuple(torch.randn((N, R), generator=g, device=dev)
+                 for _ in range(n_pay))
+    hz = kind == "valley"
+    for p in pays if hz else ():
+        p[:half] = 0.0
+    n0 = k7.LAUNCHES
+    got = k7.sort_bridge(key, sec, pays, kind=kind, head_payloads_zero=hz)
+    assert k7.LAUNCHES == n0 + 1
+    for a, b in zip(got, k7.sort_bridge_plain(key, sec, pays)):
+        assert torch.equal(a, b)
+
+
+def test_sort_bridge_kernel_int32_key_without_sec(dev):
+    """An int32 primary and no secondary: equal keys keep the first
+    half first."""
+    from letf_tpu_torch.ops import sort_bridge as k7
+
+    g = torch.Generator(device=dev).manual_seed(9)
+    R, half = 130, 300
+    key = torch.randint(0, 40, (2 * half, R), generator=g, device=dev,
+                        dtype=torch.int32)
+    key[:half] = torch.sort(key[:half], dim=0).values
+    key[half:] = torch.sort(key[half:], dim=0).values
+    pay = torch.randn((2 * half, R), generator=g, device=dev)
+    got = k7.sort_bridge(key, None, (pay,), kind="merge")
+    for a, b in zip(got, k7.sort_bridge_plain(key, None, (pay,))):
+        assert torch.equal(a, b)
+
+
+def test_sort_bridge_kernel_raises_beyond_its_limit(dev):
+    """A half longer than the kernel's shared memory takes raises; the
+    plain version is never run in its place."""
+    from letf_tpu_torch.ops import sort_bridge as k7
+
+    half = 14_529
+    key = torch.zeros((2 * half, 2), device=dev)
+    sec = torch.zeros((2 * half, 2), dtype=torch.int32, device=dev)
+    n0 = k7.LAUNCHES
+    for kind in ("merge", "valley"):
+        with pytest.raises(ValueError, match="shared memory"):
+            k7.sort_bridge(key, sec, (), kind=kind)
+    assert k7.LAUNCHES == n0
+
+
 def test_wash_kernel_bitwise(dev):
     from letf_tpu_torch.ops import wash
 
@@ -616,7 +680,8 @@ def test_kernel_info_reports_every_kernel(dev):
     registers and 24 local bytes unchanged since PR 4), K1 at least 12 (4
     blocks of one recurrence and three draw warps), K4's channel mode and
     K5 at least 16 (4 blocks of four warps), all three without spilling,
-    and K6 uses no local memory (no Payne-Hanek reduction)."""
+    K6 uses no local memory (no Payne-Hanek reduction) and K7 none (no
+    runtime-indexed parameter array)."""
     from letf_tpu_torch.ops import _build
 
     info = _build.kernel_info()
@@ -633,6 +698,7 @@ def test_kernel_info_reports_every_kernel(dev):
     assert info["compose"]["warps_per_sm"] >= 16, info
     assert info["compose"]["local_bytes"] == 0, info
     assert info["gbm"]["local_bytes"] == 0, info
+    assert info["merge"]["local_bytes"] == 0, info
 
 
 def test_gbm_kernel_matches_plain(dev):

@@ -143,16 +143,13 @@ def test_run_monte_carlo_chunking_is_bitwise(model, monkeypatch):
 
 
 def test_unported_modes_raise(model):
-    """exact_all and legacy_hybrid with bootstrap pools raise naming their
-    ROADMAP items (the parametric modes run: tests/
-    test_torch_parametric_report.py; the sampled default:
-    tests/test_torch_sampled_report.py); trade emission is
+    """legacy_hybrid with bootstrap pools raises naming its ROADMAP item
+    (the parametric modes run: tests/test_torch_parametric_report.py; the
+    sampled default: tests/test_torch_sampled_report.py; exact_all:
+    tests/test_torch_exact_tax.py); trade emission is
     emit_trade_lists', not a run_monte_carlo argument, as in the JAX
     package; an unknown engine mode is a ValueError; a mesh, checkpoint/
     resume, max_chunks and fault_tolerant raise naming item 17."""
-    with pytest.raises(NotImplementedError, match="ROADMAP.*item 13"):
-        mc_runner.monte_carlo_report(model, 1, num_simulations=8,
-                                     device="cpu", tax_mode="exact_all")
     for fn in (mc_runner.run_monte_carlo, mc_runner.emit_trade_lists):
         args = (model, 1, [0]) if fn is mc_runner.emit_trade_lists \
             else (model, 1)
