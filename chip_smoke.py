@@ -58,13 +58,24 @@ Phases, each raising on failure:
    through kernels and through plain versions (1,024 x 0.5 year), and the
    first 1,024 trials of the parametric run held to the JAX package's
    (constants below).
-9. The buy-and-hold headline: K6 against the port of the XLA twin by
+9. The production entry from data to fans (phase_calibrated), in a
+   temporary cache of the port's: (a) fetch_historical_data(
+   force_synthetic=True) against the committed history's per-column
+   digests and sums (HISTORY_*); (b) calibrate_all on the card against the
+   committed fits (the historical regimes exactly, GARCH within 2e-5,
+   the rest within rtol 1e-6), its seconds; (c) runner.run_report([10,
+   20, 30], 1,048,576 trials, seed 2) from a cold fit cache, each
+   horizon's wall, post-tax seconds and trial-days/s, every fan finite,
+   the kernels' launches; (d) the first 1,024 trials x 30 years on the
+   committed fits against the JAX package's (JAX_CAL_*); (e) cli --report
+   --synthetic-data --sims 16384 --horizons 1 on the warm cache.
+10. The buy-and-hold headline: K6 against the port of the XLA twin by
    bench.py's distribution gate (262,144 x 10 years), then
    gbm_percentile_report(1, 1,048,576, 30) after a seed-0 warm-up, held
    to the first port's K6 (its values, stored below).
-10. The validation invariants: zero-drift drag through K3, flat-market
+11. The validation invariants: zero-drift drag through K3, flat-market
    decay through K6.
-11. torch.profiler breakdowns of one pre-tax chunk and of the post-tax part
+12. torch.profiler breakdowns of one pre-tax chunk and of the post-tax part
    of a one-chunk sampled report; a breakdown of one 4,096-trial
    exact-tax chunk by stage (host clock, CUDA events, nvidia-smi's busy
    samples).
@@ -77,11 +88,17 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import hashlib
+import io
 import json
 import math
+import pickle
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -1853,6 +1870,554 @@ def phase_jax_reference(model):
     assert prel.max() < 2e-2, prel
 
 
+# The calibrated path's references, printed by
+#   JAX_PLATFORMS=cpu python3 -m tools.calibrated_reference
+# HISTORY_*: per column of the committed letf_tpu_cache_v1/
+# historical_data.pkl (read with pandas there; the card's machine has
+# none): the first 16 hex digits of the SHA-256 of its bytes, its NaN count
+# and its sum over the other days. JAX_CAL_*: the JAX package's
+# run_monte_carlo on the model of the committed fits, float32, seed 2, the
+# first 1,024 trials x 30 years in one chunk, through its production slab
+# route (the Pallas kernels in interpret mode on the CPU), summarised as
+# the JAX_PARAM_* constants are.
+HISTORY_SHAPE = (25960, 38)
+HISTORY_SPAN = ('1926-07-01', '2025-12-31')
+HISTORY_COLUMNS = {
+    'SPY_Ret': ('35a220c8b1fe6c10', 0, 7.243454429538584),
+    'QQQ_Ret': ('0e327261fa9836a5', 0, 10.26631293415533),
+    'NASDAQ_Ret': ('e678fad3bea32be9', 0, 10.472764254293947),
+    'TLT_Ret': ('0a0360ccae594667', 0, 4.629317904375315),
+    'VIX': ('912edb7e6ec50fd9', 0, 533552.4516234193),
+    'IRX': ('d53fdbd7e16985d6', 0, 92786.87245767843),
+    'TNX': ('cc89596b3f89ad72', 0, 117954.44212552936),
+    'RF': ('222c62a29fec17e4', 0, 3.682018748320573),
+    'Cash_Ret': ('222c62a29fec17e4', 0, 3.682018748320573),
+    'SPY_Price': ('f1ecb19eea5b9c17', 0, 52950560.77342598),
+    'QQQ_Price': ('923e0dee4f6c0c73', 0, 108374133.20422256),
+    'NASDAQ_Price': ('7e2a20a5435d1fb2', 0, 129003589.56498167),
+    'TLT_Price': ('e863b935275c1c0c', 0, 20828587.560552925),
+    'TQQQ_Real_Ret': ('dd49e551643fc51b', 21815, 9.059258547981548),
+    'TQQQ_Real_Price': ('e6f7ab59afc7c36b', 21815, 24015381.359711755),
+    'UPRO_Real_Ret': ('c421004388b59ff4', 21650, 5.611727971020497),
+    'UPRO_Real_Price': ('dd41adb61a64a8f4', 21650, 5148824.638445302),
+    'SSO_Real_Ret': ('0465bd46d88d280e', 20878, 5.656427773409004),
+    'SSO_Real_Price': ('497dd46aaccd3e11', 20878, 14124191.660353798),
+    'Data_Source': ('str', ['synthetic-offline']),
+    'TQQQ_Ret': ('ea5b2dc9561edcd1', 0, 21.47621747846562),
+    'TQQQ_Price': ('3afb55aad9221a30', 0, 98253761103123.02),
+    'TQQQ_IsSynthetic': ('bc47565aa47ac160', 0, 21815.0),
+    'UPRO_Ret': ('c88148e4858a9ac7', 0, 12.419588151046689),
+    'UPRO_Price': ('8e6ebc87213e0bfa', 0, 42496388760.792854),
+    'UPRO_IsSynthetic': ('6e6099ebc2a475f2', 0, 21650.0),
+    'SSO_Ret': ('273b583d04e0a51f', 0, 9.524781164346972),
+    'SSO_Price': ('8f5d425242d0d910', 0, 249568661.35497957),
+    'SSO_IsSynthetic': ('446ed7521c25c3f4', 0, 20878.0),
+    'TMF_Ret': ('450fb3dc35ef6bc0', 0, 4.361907353567079),
+    'TMF_Price': ('0ba83b912743f4ed', 0, 269785.5650169955),
+    'TMF_IsSynthetic': ('cfef4e029f9dbbd1', 0, 21600.0),
+    'SPY_IsSynthetic': ('03240921c9591b55', 0, 17371.0),
+    'QQQ_IsSynthetic': ('48a7642b14b340e2', 0, 18964.0),
+    'SMA200': ('21753bb942cec501', 0, 51770700.408924796),
+    'Market_Vol_EWMA': ('cb4f210d3d8afe64', 1, 5234.737411512198),
+    'Market_Vol_20d': ('cd04ad04e9ff36de', 19, 5179.612715279802),
+    'Market_Vol': ('cb4f210d3d8afe64', 1, 5234.737411512198),
+}
+JAX_CAL_S1_WEALTH = (
+    1.34507155418396, 5.592013835906982, 1216.8416748046875, 0.001909411745145917, 2.5724294185638428,
+    2.2686777114868164, 0.124141626060009, 88.56299591064453, 3.585774538805708e-05, 397255.3125,
+    0.3064655065536499, 163.0492401123047, 413.4117431640625, 0.040432970970869064, 428.7625427246094,
+    0.008131266571581364, 0.026872169226408005, 257.99102783203125, 614.2467651367188, 0.013052214868366718,
+    0.044762663543224335, 10.816006660461426, 2.013261318206787, 0.7547817230224609, 0.00012311385944485664,
+    64783.671875, 20.78925323486328, 0.1258600950241089, 0.15336459875106812, 12.832879066467285,
+    30.910470962524414, 1.349390983581543, 0.012899274006485939, 8249.69921875, 145.30413818359375,
+    0.030688170343637466, 1.4299615621566772, 3.3654544353485107, 9482.0, 0.0018881902797147632,
+    1092.4031982421875, 0.015415134839713573, 141.63084411621094, 0.08514934778213501, 4.909639358520508,
+    2.75707745552063, 2578.318115234375, 0.23031385242938995, 26893.14453125, 0.000290961645077914,
+    0.19448785483837128, 0.8520624041557312, 0.14731146395206451, 26.192909240722656, 0.7480908036231995,
+    20.23885726928711, 0.0013392397668212652, 85785.5546875, 12.536791801452637, 1.0183534622192383,
+    19.741300582885742, 1.1332823038101196, 0.0014962153509259224, 0.306828111410141, 33961.54296875,
+    0.001525386585853994, 99.63497161865234, 0.031166724860668182, 0.00022674787032883614, 37122.42578125,
+    0.9154635071754456, 0.5954964756965637, 3.820707082748413, 2.9793436527252197, 0.04489243030548096,
+    5.527516841888428, 0.9244744777679443, 6.741024017333984, 2086.0048828125, 0.028504157438874245,
+    67.81185150146484, 0.030445648357272148, 30193.544921875, 0.0003190739080309868, 4.619347095489502,
+    52.301170349121094, 1057.3245849609375, 0.002906559966504574, 0.26288875937461853, 88.42448425292969,
+    34718.63671875, 6.358580867527053e-05, 5.984193801879883, 0.04161611571907997, 1.2045092582702637,
+    0.270664244890213, 0.00010455510346218944, 95220.296875, 0.5416318774223328, 1.996480107307434,
+    1.687786340713501, 0.7827906012535095, 0.012998168356716633, 0.005669415928423405, 648.212890625,
+    0.028648613020777702, 63.04585647583008, 0.02494649589061737, 47.04644012451172, 1.067720651626587,
+    0.5694826245307922, 32.813873291015625, 0.02730570361018181, 1.1844490766525269, 1614.2647705078125,
+    0.01208340935409069, 9.175987361231819e-05, 159314.515625, 0.04337153211236, 306.77520751953125,
+    0.0038482986856251955, 50.22645950317383, 232.93247985839844, 0.013038345612585545, 6.373170852661133,
+    0.3694387376308441, 1141.1082763671875, 0.10556801408529282, 0.7245007157325745, 30.945154190063477,
+    0.0005321502103470266, 6184.75390625, 0.12659253180027008, 244.48936462402344, 2.021850824356079,
+    0.13796094059944153, 0.06590170413255692, 60.21147537231445, 0.49293550848960876, 2.2272212505340576,
+    0.4533208906650543, 64.73171997070312, 0.016280198469758034, 6715.4091796875, 0.034396328032016754,
+    17.07740592956543, 0.00022865700884722173, 4664.53125, 0.8426898121833801, 9.161076545715332,
+    0.004384842235594988, 11.194672584533691, 8.387054549530149e-05, 3.3629751205444336, 4666.45751953125,
+    0.00018644567171577364, 33.65837097167969, 0.7237582802772522, 0.029024627059698105, 861.3146362304688,
+    0.49427738785743713, 17.980867385864258, 21.872392654418945, 1.4308215379714966, 3367.045654296875,
+    0.0014748626854270697, 105.14830017089844, 0.038610126823186874, 587.2337036132812, 0.1288519650697708,
+    24.43004035949707, 0.0420459620654583, 0.006190324202179909, 109.66028594970703, 0.30722278356552124,
+    9.519499778747559, 1.653385993449774e-06, 0.00031906465301290154, 57.06486129760742, 2.0019750595092773,
+    18.795028686523438, 0.20836572349071503, 0.00042263095383532345, 0.15876471996307373, 0.025576895102858543,
+    50.89520263671875, 0.004067701753228903, 2841.34912109375, 14.989151954650879, 0.27952972054481506,
+    0.31770965456962585, 0.23266954720020294, 4.667786598205566, 34.249176025390625, 36.75273132324219,
+    0.7870647311210632, 36.18708419799805, 0.5129332542419434, 1.057859182357788, 3.2837631702423096,
+    10.23906135559082, 10.167553901672363, 0.5368775725364685, 0.09119099378585815, 316.95904541015625,
+    0.0631658285856247, 0.0002673667040653527, 4391.5244140625, 4332.82421875, 0.008034157566726208,
+    0.006056283134967089, 491.2409362792969, 1.9327090978622437, 6.541721820831299, 0.00020084787684027106,
+    194.4699249267578, 9.547137260437012, 1.8133440017700195, 4.8046393394470215, 1.7232747077941895,
+    638.0247192382812, 0.0046058036386966705, 0.0272805355489254, 27.673376083374023, 437.75555419921875,
+    0.0821954682469368, 19.18253517150879, 0.7868719696998596, 260.2483825683594, 0.01756291463971138,
+    2908.097412109375, 0.003246977459639311, 2.2048983573913574, 2.2860052585601807, 54.73116683959961,
+    1.1793125867843628, 35.18867874145508, 0.27413931488990784, 0.00044443129445426166, 2.6068124771118164,
+    149035.875, 2.295865215273807e-06, 327.2711181640625, 0.026847749948501587, 0.12841540575027466,
+    229.8186798095703, 6.989522933959961, 24.255619049072266, 2638.046630859375, 0.0028373105451464653,
+    4.233529090881348, 0.6104264259338379, 386.48760986328125, 0.041829485446214676, 1602915.375,
+    5.1303904911037534e-06, 920.4266357421875, 0.034900397062301636, 70.96472930908203, 0.04155214503407478,
+    3384.3896484375, 0.006447393447160721, 0.07297548651695251, 85.9933090209961, 1.7240023612976074,
+    4.683084487915039, 1.5833805377951649e-07, 1547.768798828125, 66368.1171875, 0.00028536751051433384,
+    54.15236282348633, 0.07306765764951706, 9.664084434509277, 0.8192050457000732, 3.0862624645233154,
+    3.318100690841675, 3695.402587890625, 0.02963452972471714, 0.07907901704311371, 55.6201057434082,
+    10.400957107543945, 0.0003354425716679543, 0.0018965012859553099, 11215.3701171875, 651.7164916992188,
+    0.1325092762708664, 12.326499938964844, 0.7727430462837219, 0.0071667879819869995, 386.9255065917969,
+    0.016358843073248863, 249.84884643554688, 2.9039182662963867, 0.23042988777160645, 0.12305793166160583,
+    72.9807357788086, 21.164785385131836, 0.7113112211227417, 19.80194091796875, 0.31196698546409607,
+    0.17703719437122345, 64.51464080810547, 17499.166015625, 0.002290839096531272, 37.159332275390625,
+    0.3225248157978058, 19041.138671875, 0.0008178590796887875, 2.8695995807647705, 0.004851925652474165,
+    0.001626473036594689, 570.2703857421875, 0.0936376079916954, 42.17698669433594, 88.5489501953125,
+    0.13357703387737274, 0.027610257267951965, 15.998730659484863, 2.7933170795440674, 0.06272859871387482,
+    0.23743514716625214, 6.383221626281738, 12.339203834533691, 0.0853317379951477, 1.4822072982788086,
+    0.0007736222469247878, 0.010073027573525906, 468.616943359375, 24.02574348449707, 5.526508630282478e-06,
+    0.8935554623603821, 5.970462322235107, 0.0010173545451834798, 1361.9254150390625, 25.717025756835938,
+    0.22468644380569458, 1693.24365234375, 0.03340592235326767, 0.9533334374427795, 2.9957003593444824,
+    0.13115853071212769, 8.299527168273926, 3.469517230987549, 3.1598806381225586, 0.4297260046005249,
+    0.2675964832305908, 36.31520080566406, 0.011092028580605984, 0.010169725865125656, 68.72704315185547,
+    0.020602818578481674, 2.2104577890313948e-10, 0.6245737671852112, 22.15891456604004, 21.85192108154297,
+    0.05873826518654823, 0.04938780516386032, 69.19955444335938, 1.7970799207687378, 22.876605987548828,
+    289.8008728027344, 0.04240031912922859, 1.0751091241836548, 11.421236991882324, 0.004887673072516918,
+    2330.382080078125, 726.50390625, 0.01529531367123127, 0.04991764947772026, 276.2864990234375,
+    0.1643117070198059, 0.8555842041969299, 60899.03515625, 0.00014697678852826357, 0.1288464516401291,
+    1.9891173839569092, 91613.515625, 0.00037490014801733196, 3456.705078125, 0.026153670623898506,
+    0.35658735036849976, 3.5140695571899414, 282.8518371582031, 0.053140074014663696, 1.2107175588607788,
+    0.2368922084569931, 10.768892288208008, 0.6329458951950073, 0.022109247744083405, 1768.46484375,
+    0.3110720217227936, 8.863691329956055, 0.018458636477589607, 6875.9462890625, 0.06029419228434563,
+    0.0410483255982399, 0.416422575712204, 0.19798149168491364, 523135.3125, 1.1785356946347747e-05,
+    53.20417022705078, 0.29541248083114624, 1.8053728342056274, 4.462436199188232, 41.27290344238281,
+    0.6870893836021423, 0.11138872057199478, 149.4231414794922, 52.19865417480469, 0.09870793670415878,
+    126.51338958740234, 0.017747916281223297, 3.3511552810668945, 3.367218494415283, 0.009941110387444496,
+    60.29018783569336, 0.09284155815839767, 263.469970703125, 0.18963541090488434, 20.961084365844727,
+    0.421056866645813, 50.655216217041016, 11.542924880981445, 0.039640020579099655, 12.643059730529785,
+    0.1804824024438858, 0.005231262184679508, 826.4631958007812, 69.740966796875, 0.12750224769115448,
+    0.2560892701148987, 2.8099024295806885, 0.017669154331088066, 38.80467987060547, 39.46820831298828,
+    9.931264912665938e-07, 0.1196129247546196, 27.153940200805664, 2.031263589859009, 1.4328792095184326,
+    0.1947636902332306, 5.611675262451172, 0.0025333359371870756, 7967.21533203125, 626.6738891601562,
+    0.04205746203660965, 226.2307586669922, 0.02014155313372612, 0.1164092943072319, 41.125362396240234,
+    0.01122622936964035, 4368.3232421875, 22.364709854125977, 0.08146156370639801, 2.450014591217041,
+    2.216149091720581, 0.01849716156721115, 930.593017578125, 420210.65625, 0.00011206272029085085,
+    7.148087024688721, 0.5675760507583618, 0.007140928413718939, 232.00430297851562, 1.625908510050067e-07,
+    434381.96875, 0.08572520315647125, 25.35472297668457, 1.8087270259857178, 57.46760940551758,
+    1.0425251722335815, 70.12077331542969, 235.71542358398438, 0.02270311489701271, 0.7601396441459656,
+    1.161811113357544, 15.857638359069824, 0.010869982652366161, 0.23395812511444092, 24.0810489654541,
+    201526.203125, 9.689041746696603e-08, 352378.28125, 3.7797269669681555e-06, 15284.0712890625,
+    2.1080424630781636e-05, 0.02412416785955429, 5.035185813903809, 0.3185456395149231, 23.47044563293457,
+    1.6396336555480957, 0.6257457733154297, 559.533447265625, 0.043567005544900894, 1.1886756420135498,
+    0.18173719942569733, 11.294892311096191, 0.2327592372894287, 0.11622562259435654, 643.3803100585938,
+    29034.505859375, 0.0012948414077982306, 0.28011777997016907, 0.40474802255630493, 0.2942981421947479,
+    4.414846420288086, 0.015336711890995502, 0.05297601595520973, 0.0018760364037007093, 591.0001831054688,
+    3.729200601577759, 0.07555641233921051, 0.4421238303184509, 55.33637619018555, 168.56455993652344,
+    0.09154120087623596, 609.6041870117188, 0.19248852133750916, 0.40613847970962524, 21.299694061279297,
+    0.09224873036146164, 1876.94677734375, 10.125426292419434, 1.8802108764648438, 0.07229985296726227,
+    0.75978684425354, 3362.3271484375, 0.006309209391474724, 4.970596378939263e-09, 1.1033174729391249e-07,
+    0.1670667976140976, 8.092409133911133, 198.8149871826172, 4.175452090748877e-07, 18.834800720214844,
+    0.08700767904520035, 1.245516300201416, 13.113670349121094, 628.2035522460938, 0.005675758700817823,
+    10.194612503051758, 25.333234786987305, 2468.879638671875, 0.01046067290008068, 0.27470698952674866,
+    89.75133514404297, 0.18399523198604584, 54.73244094848633, 5.375291347503662, 0.06757564842700958,
+    27.144420623779297, 0.5554785132408142, 169.6527862548828, 0.2839427888393402, 0.08429629355669022,
+    428.4690856933594, 1634.090087890625, 0.025728857144713402, 10.380599975585938, 0.41950932145118713,
+    1.9051845073699951, 2.052549123764038, 52.44464874267578, 0.1625230759382248, 76249.421875,
+    2.1350169845391065e-05, 2.4788386821746826, 0.06281743198633194, 146739.609375, 0.0007016558665782213,
+    17.300378799438477, 0.23124118149280548, 0.0023765501100569963, 80.4485855102539, 20731.91015625,
+    0.0006184940575622022, 4.066812992095947, 1.1870962381362915, 0.014029035344719887, 138.71871948242188,
+    8.748518943786621, 0.2863689661026001, 675.9525756835938, 0.04530814662575722, 1.6431039571762085,
+    4.611596694792386e-12, 6.231802463531494, 0.009264915250241756, 0.020482387393712997, 124.62034606933594,
+    0.16120466589927673, 71.86605834960938, 0.20134712755680084, 217.14064025878906, 81.83356475830078,
+    0.2194736748933792, 0.0012267177226021886, 8372.625, 0.3570273816585541, 23.712352752685547,
+    18.01897621154785, 1.5735751390457153, 0.7488094568252563, 0.3845306932926178, 412.42236328125,
+    0.023309901356697083, 0.6098368763923645, 0.798427939414978, 1036.501220703125, 0.0002643618790898472,
+    0.5198612213134766, 4.941497802734375, 20178.484375, 0.00022373402316588908, 3.713170289993286,
+    1.447678565979004, 33450.69140625, 0.012130418792366982, 0.17149506509304047, 0.5361475944519043,
+    281.8710021972656, 0.01575453206896782, 230.27207946777344, 0.04833827167749405, 6.70201116008684e-05,
+    690535.75, 0.031278450042009354, 4.712028385256417e-05, 2448.64404296875, 0.017850100994110107,
+    0.24603238701820374, 6.998460292816162, 3.132286310195923, 0.2995550334453583, 1.1652195453643799,
+    3.3610610961914062, 0.0506427027285099, 1532.3372802734375, 0.4398377239704132, 0.7059944868087769,
+    0.35057130455970764, 4.985022068023682, 10.540797233581543, 0.00023535554646514356, 23.940515518188477,
+    1.7185332775115967, 0.6953414082527161, 2.285290241241455, 0.056328799575567245, 48.81822967529297,
+    3.478055000305176, 39.046627044677734, 43.32110595703125, 0.0010839413153007627, 0.0006030664080753922,
+    123.81108856201172, 0.00014255844871513546, 367259.25, 9.82174301147461, 6.411388874053955,
+    0.7490965723991394, 0.8864989876747131, 0.45774567127227783, 0.03136184811592102, 0.18273884057998657,
+    192.15184020996094, 0.3481970727443695, 31.12995147705078, 0.0027553439140319824, 594.7989501953125,
+    0.008885926567018032, 551.0682983398438, 0.0029767840169370174, 6117.7646484375, 0.026303991675376892,
+    33.088233947753906, 0.04755664989352226, 968.5833740234375, 9.795066833496094, 0.3600287139415741,
+    873.9556884765625, 0.014025216922163963, 15.817340850830078, 0.08804634213447571, 29.664220809936523,
+    0.02796272002160549, 3429.104248046875, 0.00016581045929342508, 0.00028005699277855456, 407.2777099609375,
+    0.003438725834712386, 1827.57470703125, 24.249576568603516, 1.5249444246292114, 1284.5557861328125,
+    0.0004409987304825336, 15.452099800109863, 0.2596072256565094, 0.4830760359764099, 70.36758422851562,
+    18.335786819458008, 0.23742125928401947, 179.2915496826172, 0.1421300321817398, 0.0066767106764018536,
+    518.5213012695312, 4.423447608947754, 5.052726745605469, 4.668293476104736, 0.6673030853271484,
+    1112.7137451171875, 0.0018114764243364334, 0.7286360859870911, 41.990692138671875, 0.008048632182180882,
+    544.6156616210938, 1966.635498046875, 0.04450530931353569, 0.46726885437965393, 4.250865459442139,
+    0.0005474082427099347, 40184.0234375, 0.0030563075561076403, 0.18960431218147278, 21812.142578125,
+    0.0010615583742037416, 0.3078588843345642, 31.068763732910156, 150.46258544921875, 0.034672580659389496,
+    0.006247429177165031, 1.9134204387664795, 9.242995474778581e-06, 99614.1328125, 30.771080017089844,
+    0.08894974738359451, 0.004719543270766735, 11792.3525390625, 0.8992394804954529, 3.1834168434143066,
+    7.472159385681152, 0.027557866647839546, 0.3164902627468109, 11.480128288269043, 3.4418492317199707,
+    0.9084047675132751, 0.007039801683276892, 985.7785034179688, 5.394389518187381e-06, 1660.758056640625,
+    0.0003761555708479136, 24784.091796875, 1152.5347900390625, 0.00693088211119175, 26.295724868774414,
+    3.412583351135254, 591.7507934570312, 0.10811644792556763, 0.7322266697883606, 0.36011970043182373,
+    0.0784720852971077, 40.47528076171875, 0.0076692188158631325, 343.73870849609375, 773.7472534179688,
+    0.11218889057636261, 0.12229064106941223, 0.9125125408172607, 0.007194993551820517, 1.2221672534942627,
+    0.0002393306203885004, 83299.3515625, 0.0009722328395582736, 8351.0478515625, 1.4422732591629028,
+    0.008305932395160198, 8.992172241210938, 0.7318795919418335, 15872.18359375, 0.0001420725166099146,
+    0.4657859206199646, 0.2191714346408844, 0.0006981497863307595, 433.1473693847656, 0.10276015102863312,
+    71.31425476074219, 129.61862182617188, 0.017841476947069168, 0.10436604171991348, 11.161389350891113,
+    6351.68701171875, 0.0008987606852315366, 0.010069770738482475, 457.63153076171875, 4.0625715255737305,
+    4.51104736328125, 883.7689819335938, 0.0018869234481826425, 0.06528820842504501, 49.88893508911133,
+    98.93490600585938, 0.09094803035259247, 0.014292917214334011, 0.002208869671449065, 0.038843732327222824,
+    668.83154296875, 225.67010498046875, 0.2004372924566269, 7.853241920471191, 0.2739830017089844,
+    0.02919222228229046, 36.770660400390625, 0.022639993578195572, 11.57631778717041, 1.918949842453003,
+    29.079761505126953, 141.11720275878906, 0.36450016498565674, 5.966498374938965, 1.063120722770691,
+    0.0010525587713345885, 5036.10546875, 828.5922241210938, 0.0053988113068044186, 581.6741943359375,
+    0.07788682729005814, 0.07354586571455002, 17.067134857177734, 4.906740665435791, 5.945775569671241e-07,
+    0.00011501597327878699, 50564.9140625, 0.00015379158139694482, 1823.60986328125, 298.7773132324219,
+    8.8332859604634e-07, 2.2164900302886963, 56.18107223510742, 0.03182274103164673, 2373.277099609375,
+    1.2159048318862915, 5.173098087310791, 1.1258937120437622, 1.1659679412841797, 14.070399284362793,
+    0.94921875, 9.098395347595215, 2.483088970184326, 0.21631069481372833, 63.78976058959961,
+    0.4475978910923004, 27.855873107910156, 299.6235046386719, 8.83966890796728e-08, 71.54121398925781,
+    0.9370326995849609, 446.4524841308594, 0.39039936661720276, 0.8326091170310974, 92.28895568847656,
+    119.66722106933594, 0.08461079001426697, 0.44599851965904236, 23.425189971923828, 15273.6474609375,
+    0.0012452591909095645, 3.544037103652954, 1.3116800801071804e-05, 113.67757415771484, 0.19602562487125397,
+    1.110124111175537, 5.239927768707275, 1.7104849815368652, 11.638324737548828, 0.028720887377858162,
+    1820.5504150390625, 9.316115379333496, 6.227487087249756, 719.1676635742188, 0.056232254952192307,
+    76.28841400146484, 0.11668083071708679, 0.005071676801890135, 557.9922485351562, 3.936861753463745,
+    0.0013348483480513096, 0.9340320825576782, 8.309455871582031, 0.010842554271221161, 249.69105529785156,
+    3.2893771276576445e-05, 4701.7041015625, 19.560810089111328, 0.00040327967144548893, 359.7439880371094,
+    0.024144506081938744, 0.1738409847021103, 9.814696311950684, 0.17132960259914398, 53.398345947265625,
+    69.6253662109375, 0.4366004168987274, 0.7862537503242493, 75.10515594482422, 0.44682687520980835,
+    8.589377403259277, 0.6333822011947632, 18.155797958374023, 4.604228973388672, 1.6545883417129517,
+    19.661693572998047, 3.981398820877075, 2.0541772842407227, 0.9676043391227722, 917.1283569335938,
+    0.0230735931545496, 15.767369270324707, 0.1558654010295868, 12.376315116882324, 0.24753141403198242,
+    0.6995282173156738, 0.333655446767807, 0.5860119462013245, 4.022807598114014, 13.268289566040039,
+    0.9694925546646118, 4139.63330078125, 0.01859608106315136, 0.014118635095655918, 242.05108642578125,
+    0.7617335319519043, 274.60693359375, 0.030852191150188446, 0.004716580267995596, 1.0789514703901659e-07,
+    3.208256721496582, 0.23526838421821594, 69.03058624267578, 43.429508209228516, 0.20570306479930878,
+    1.4194271564483643, 57.89963912963867, 150262.078125, 9.275157935917377e-05, 0.21647199988365173,
+    67.14395904541016, 2.080240488052368, 3.4241182804107666, 0.49325767159461975, 29.18658447265625,
+    1.6834306716918945, 0.0424027182161808, 1609.1209716796875, 0.15425296127796173, 25.101394653320312,
+    0.3817960023880005, 0.616443395614624, 5.753119468688965, 1.6232561392826028e-05, 133662.515625,
+    4.208634376525879, 0.6917757987976074, 4.227925777435303, 0.03843245655298233, 4.329646587371826,
+    0.03344187140464783, 12.126703262329102, 0.04953357204794884, 0.2537935674190521, 163.38218688964844,
+    0.023855553939938545, 706.0702514648438, 588103.1875, 6.660984581685625e-07, 3.256129503250122,
+    1.4582208395004272, 104.50513458251953, 0.1124163493514061, 8.014849662780762, 0.9855263829231262,
+    373.6821594238281, 0.10206184536218643, 16.280906677246094, 0.03721163421869278, 4.083781719207764,
+    0.5744791030883789, 2.183145761489868, 5.032205104827881, 0.014263537712395191, 3.3021810054779053,
+    0.025668691843748093, 25.15879249572754, 0.3064015209674835, 7.962116241455078, 378.19451904296875,
+    0.045407045632600784, 6074.265625, 0.01898372359573841, 0.7395488619804382, 10.717429161071777,
+    1106.0068359375, 0.021972982212901115, 896.2477416992188, 0.023668531328439713, 0.3245164453983307,
+    107.74512481689453, 4.871960639953613, 1.3720241785049438, 0.11989466100931168, 31.339685440063477,
+    0.3754245936870575, 348.18731689453125, 0.0252856258302927, 581.7334594726562, 0.0007364388438872993,
+    2567.977783203125, 8.334233283996582, 3.2134222984313965, 0.0001795229036360979, 0.004858255386352539,
+    19.669641494750977, 0.3347267210483551, 7001952.5, 1.771454776644532e-06,
+)
+JAX_CAL_TRADE_SUMS = (0, 0, 0, 284232, 269769, 735232, 5441543, 1453410, 7223458, 5608660, 7468519, 7524371, 7495335, 7423104, 5528441, 7602499, 6522051, 7379367, 2861449)
+JAX_CAL_WEALTH_P50 = (1.5035758018493652, 30364.3515625, 3720.964599609375, 114.1778564453125, 71.2265625, 3753.82861328125, 22098.666015625, 2037.5546875, 16211.7470703125, 18247.69921875, 23401.7890625, 25065.5, 22761.60546875, 22779.412109375, 4166.603515625, 56683.51953125, 9740.07421875, 10649.162109375, 541.6241455078125)
+JAX_CAL_INT_SUMS = {'start_offset': 663260, 'regime_high_days': 202260, 'jump_days': 10598, 'valid': 1022}
+
+REPO = Path(__file__).resolve().parent
+COMMITTED_FITS = ("regime_model", "joint_return_model",
+                  "funding_spread_model", "stress_state_model",
+                  "tracking_residual_model")
+# The committed GARCH fits are float32 (the JAX package's default mode);
+# the port fits in float64, 4.1e-6 from them on the CPU.
+FIT_BOUNDS = {"garch": 2e-5, "rtol": 1e-6}
+CACHE_NAMES = ("DATA_CACHE", "REGIME_MODEL_CACHE", "CORRELATION_CACHE",
+               "VALIDATION_RESULTS", "JOINT_RETURN_MODEL_CACHE",
+               "FUNDING_MODEL_CACHE", "TRACKING_RESIDUAL_CACHE",
+               "STRESS_STATE_CACHE", "BOOTSTRAP_CACHE")
+
+
+def digest(a: np.ndarray) -> str:
+    return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()[:16]
+
+
+@contextlib.contextmanager
+def port_cache():
+    """The port's cache directory, for the block, in a new temporary
+    directory (removed after)."""
+    from letf_tpu_torch import config as cfg
+
+    tmp = Path(tempfile.mkdtemp(prefix="letf_tpu_torch_cache_"))
+    saved = {n: getattr(cfg, n) for n in ("CACHE_DIR",) + CACHE_NAMES}
+    cfg.CACHE_DIR = tmp
+    for n in CACHE_NAMES:
+        setattr(cfg, n, tmp / saved[n].name)
+    try:
+        yield tmp
+    finally:
+        for n, v in saved.items():
+            setattr(cfg, n, v)
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def committed_fits():
+    """calibrate_all's output rebuilt from the JAX package's committed
+    fitted-model pickles (numpy leaves only): (regime_model,
+    correlations)."""
+    load = {n: pickle.loads((REPO / "letf_tpu_cache_v1" / f"{n}.pkl")
+                            .read_bytes()) for n in COMMITTED_FITS}
+    model = dict(load["regime_model"])
+    model["joint_return_model"] = load["joint_return_model"]
+    model["funding_model"] = load["funding_spread_model"]
+    model["stress_state_model"] = load["stress_state_model"]
+    model["tracking_residual_model"] = load["tracking_residual_model"]
+    corr = pickle.loads((REPO / "letf_tpu_cache_v1" / "correlations.pkl")
+                        .read_bytes())
+    return model, corr
+
+
+def phase_history():
+    """(a) fetch_historical_data(force_synthetic=True) into the port's
+    cache against the committed history's per-column digests and sums:
+    every column's NaN count equal and its sum within rtol 1e-12 (a numpy
+    whose float64 pow differs in the last bit moves the LETF columns by
+    ulps), the number of bitwise columns logged."""
+    from letf_tpu_torch.data import fetch_historical_data
+
+    t0 = time.perf_counter()
+    df = fetch_historical_data(force_synthetic=True)
+    secs = time.perf_counter() - t0
+    assert (len(df), len(df.columns)) == HISTORY_SHAPE, (len(df),
+                                                         df.columns)
+    assert df.columns == list(HISTORY_COLUMNS), df.columns
+    assert (str(df.index[0]), str(df.index[-1])) == HISTORY_SPAN
+    bitwise, worst = 0, 0.0
+    for c, ref in HISTORY_COLUMNS.items():
+        if ref[0] == "str":
+            assert sorted(set(df[c].tolist())) == ref[1], c
+            bitwise += 1
+            continue
+        a = df[c]
+        bitwise += digest(a) == ref[0]
+        f = a.astype(np.float64)
+        assert int(np.isnan(f).sum()) == ref[1], c
+        rel = abs(float(np.nansum(f)) - ref[2]) / max(abs(ref[2]), 1e-300)
+        worst = max(worst, rel)
+        assert rel <= 1e-12, (c, rel)
+    log(f"calibrated path (a): fetch_historical_data(force_synthetic=True) "
+        f"{len(df)} days x {len(df.columns)} columns in {secs:.3f} s "
+        f"(host); {bitwise}/{len(HISTORY_COLUMNS)} columns bitwise the "
+        f"committed history, largest relative sum difference {worst:.3e}")
+    return df
+
+
+def fit_errors(got, ref, path="", out=None):
+    """{"garch": largest |abs error| of the GARCH fits, "rel": largest
+    relative error of the other numbers}; raises past FIT_BOUNDS or where
+    a key, a length or the historical regimes differ."""
+    out = {"garch": 0.0, "rel": 0.0} if out is None else out
+    if isinstance(ref, dict):
+        assert sorted(got, key=str) == sorted(ref, key=str), path
+        for k in ref:
+            fit_errors(got[k], ref[k], f"{path}/{k}", out)
+    elif isinstance(ref, (list, tuple)):
+        assert len(got) == len(ref), path
+        for i, (a, b) in enumerate(zip(got, ref)):
+            fit_errors(a, b, f"{path}[{i}]", out)
+    elif isinstance(ref, str):
+        assert got == ref, path
+    elif path.endswith("regimes_historical"):
+        assert np.array_equal(got, ref), path
+    elif path.endswith(("garch_alpha", "garch_beta")):
+        out["garch"] = max(out["garch"], abs(got - ref))
+        assert abs(got - ref) <= FIT_BOUNDS["garch"], (path, got, ref)
+    else:
+        a, b = np.asarray(got, np.float64), np.asarray(ref, np.float64)
+        assert a.shape == b.shape, path
+        err = np.abs(a - b)
+        fin = np.isfinite(b)
+        assert np.array_equal(a[~fin], b[~fin]), path
+        scale = np.abs(b[fin])
+        rel = np.where(scale > 0, err[fin] / np.where(scale > 0, scale, 1.0),
+                       np.where(err[fin] == 0, 0.0, np.inf))
+        worst = float(rel.max()) if rel.size else 0.0
+        out["rel"] = max(out["rel"], worst)
+        assert worst <= FIT_BOUNDS["rtol"], (path, worst)
+    return out
+
+
+def phase_calibration(df, smi):
+    """(b) calibrate_all(frame, device="cuda"): the fits on the card in
+    float64 against the committed fits (FIT_BOUNDS; the historical
+    regimes exactly); returns the seconds."""
+    from letf_tpu_torch.calibration import calibrate_all
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model, corr = calibrate_all(df, device="cuda")
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    ref_model, ref_corr = committed_fits()
+    err = fit_errors(model, ref_model)
+    err_c = fit_errors(corr, ref_corr)
+    jm = model["joint_return_model"]["regimes"]
+    log(f"calibrated path (b): calibrate_all on the card in {secs:.3f} s "
+        f"({smi}); against the committed fits: GARCH largest |error| "
+        f"{err['garch']:.3e} (bound {FIT_BOUNDS['garch']}), other numbers "
+        f"largest relative error {max(err['rel'], err_c['rel']):.3e} "
+        f"(bound {FIT_BOUNDS['rtol']}), historical regimes equal; GARCH "
+        f"(alpha, beta) {[(jm[r]['garch_alpha'], jm[r]['garch_beta']) for r in sorted(jm)]}, "
+        f"nu {[jm[r]['nu'] for r in sorted(jm)]}")
+    return secs
+
+
+def phase_calibrated_report(counters, smi, n=1_048_576, horizons=(10, 20, 30)):
+    """(c) runner.run_report(horizons=[10, 20, 30], 1,048,576 trials, seed
+    2, force_synthetic=True) from the cached history and a cold fit cache
+    (so it calibrates, as a user's first report does), the launch counters
+    set to 0 just before and read just after: every fan finite, finite_frac
+    1.0, and every kernel of the sampled report launched."""
+    from letf_tpu_torch import config as cfg
+    from letf_tpu_torch import runner
+
+    for name in CACHE_NAMES[1:]:
+        Path(getattr(cfg, name)).unlink(missing_ok=True)
+    stages = {}
+    reset(counters)
+    GENERAL_TRIALS.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    reps = runner.run_report(horizons=list(horizons), num_simulations=n,
+                             seed=2, force_synthetic=True, device="cuda",
+                             stage_seconds=stages)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read(counters)
+    per = {}
+    for h in horizons:
+        rep = reps[h]
+        secs = stages[f"horizon_{h}"]
+        per[h] = {"wall_s": secs, "post_tax_s": rep["post_tax_seconds"],
+                  "pre_tax_s": secs - rep["post_tax_seconds"],
+                  "trial_days_per_s": n * h * 252 / secs,
+                  "valid_frac": rep["valid_frac"],
+                  "finite_frac": rep["finite_frac"],
+                  "S1_p50": rep["strategies"]["S1"]["wealth"]["p50"],
+                  "S7_post_tax_p50":
+                      rep["strategies"]["S7"]["post_tax"]["wealth"]["p50"]}
+        assert rep["n_trials"] == n and rep["finite_frac"] == 1.0, rep
+        for sid, s in rep["strategies"].items():
+            assert all(np.isfinite(v) for v in s["wealth"].values()), sid
+            if "post_tax" in s:
+                pt = s["post_tax"]
+                assert all(np.isfinite(v) for v in pt["wealth"].values())
+                assert np.isfinite(pt["median_tax"]), sid
+        assert len([s for s in rep["strategies"].values()
+                    if "post_tax" in s]) == 13
+    log(f"calibrated path (c): run_report({list(horizons)}, {n} trials, "
+        f"seed 2, force_synthetic) wall {wall:.3f} s ({smi}): data "
+        f"{stages['data']:.3f} s, calibration {stages['calibration']:.3f} "
+        f"s, per horizon {json.dumps(per)}; launches {launches}, general "
+        f"path (K5) at {GENERAL_TRIALS} trials")
+    chunks = -(-n // B_CHUNK) * len(horizons)
+    assert launches["joint"] == chunks + len(horizons), launches
+    assert launches["compose_strategies"] == chunks, launches
+    assert launches["window"] == chunks, launches
+    assert launches["window_tiles"] == len(horizons), launches
+    assert launches["compose"] == len(horizons), launches
+    assert launches["sort_bridge"] >= len(horizons), launches
+    assert launches["wash"] >= len(horizons), launches
+    assert launches["strategies"] == 0 and launches["gbm"] == 0, launches
+    return launches
+
+
+def phase_calibrated_jax_reference():
+    """(d) The first 1,024 trials x 30 y of run_monte_carlo on the model of
+    the committed fits, on the card, against the JAX package's run
+    (JAX_CAL_*), with phase_jax_reference's bounds: start offsets and
+    regime-1 days exact; S1 (no decisions) per trial within a median
+    relative error of 1e-5, every trial within 1e-3; each strategy's
+    summed trade count within 0.5% and its median wealth within 2%."""
+    from letf_tpu_torch.parallel import mc_runner
+
+    model, _ = committed_fits()
+    a = mc_runner.run_monte_carlo(model, 30, num_simulations=1024, seed=2,
+                                  chunk_size=1024, device="cuda")
+    s1 = a.final_wealth[:, 0].astype(np.float64)
+    ref = np.asarray(JAX_CAL_S1_WEALTH)
+    rel = np.abs(s1 - ref) / np.maximum(np.abs(ref), 1e-30)
+    sums = a.num_trades.sum(0)
+    tr = np.abs(sums - np.asarray(JAX_CAL_TRADE_SUMS)) / np.maximum(
+        np.asarray(JAX_CAL_TRADE_SUMS), 1)
+    p50 = np.median(a.final_wealth.astype(np.float64), 0)
+    prel = np.abs(p50 - np.asarray(JAX_CAL_WEALTH_P50)) / np.maximum(
+        np.abs(np.asarray(JAX_CAL_WEALTH_P50)), 1e-30)
+    ints = {"start_offset": int(a.start_offset.sum()),
+            "regime_high_days": int(a.regime_high_days.sum()),
+            "jump_days": int(a.jump_days.sum()), "valid": int(a.valid.sum())}
+    log(f"calibrated path (d): run_monte_carlo on the committed fits vs the "
+        f"JAX package (1,024 x 30y): S1 per-trial rel err median "
+        f"{np.median(rel):.3e} max {rel.max():.3e}; trade sums max rel diff "
+        f"{tr.max():.3e}; median wealth max rel diff {prel.max():.3e}; "
+        f"integer sums {ints} (JAX {JAX_CAL_INT_SUMS}); valid_frac "
+        f"{a.valid.mean():.6f}")
+    assert ints["start_offset"] == JAX_CAL_INT_SUMS["start_offset"], ints
+    assert ints["regime_high_days"] == JAX_CAL_INT_SUMS[
+        "regime_high_days"], ints
+    assert abs(ints["jump_days"] - JAX_CAL_INT_SUMS["jump_days"]) <= 2
+    assert abs(ints["valid"] - JAX_CAL_INT_SUMS["valid"]) <= 2
+    assert np.median(rel) < 1e-5 and rel.max() < 1e-3, rel.max()
+    assert tr.max() < 5e-3, tr
+    assert prel.max() < 2e-2, prel
+
+
+def phase_cli(smi):
+    """(e) python -m letf_tpu_torch.cli --report --synthetic-data --sims
+    16384 --horizons 1, through cli.main on the warm cache (default device:
+    the card)."""
+    from letf_tpu_torch import cli
+    from letf_tpu_torch import config as cfg
+
+    sims = cfg.NUM_SIMULATIONS
+    out = io.StringIO()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        cli.main(["--report", "--synthetic-data", "--sims", "16384",
+                  "--horizons", "1"])
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    cfg.NUM_SIMULATIONS = sims
+    text = out.getvalue()
+    print(text, flush=True)
+    assert "AT-SCALE REPORT: 16,384 trials x 1y" in text, text[-2000:]
+    assert "Using cached historical data" in text
+    assert "TAXABLE (post-tax, CA $150,000 single; sampled" in text
+    log(f"calibrated path (e): cli --report --synthetic-data --sims 16384 "
+        f"--horizons 1 on the warm cache in {secs:.3f} s ({smi})")
+
+
+def phase_calibrated(counters, smi):
+    """The production entry from data to fans (phases a-e) in a temporary
+    cache of the port's."""
+    with port_cache():
+        df = phase_history()
+        phase_calibration(df, smi)
+        launches = phase_calibrated_report(counters, smi)
+        phase_calibrated_jax_reference()
+        phase_cli(smi)
+    return launches
+
+
 def phase_validation(counters):
     """The two invariants of the validation battery on the card: the
     zero-drift drag through K3 (10,000 paths, within 1.5%), the flat-market
@@ -2000,6 +2565,8 @@ def main():
         model, model_t, ctrs)
     phase_parametric_small(model)
     phase_jax_reference(model)
+    launches["calibrated_report"] = phase_calibrated(ctrs, smi)
+    torch.cuda.empty_cache()
     launches["headline"] = phase_headline(ctrs)
     phase_validation(ctrs)
     phase_profile(model)

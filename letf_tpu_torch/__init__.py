@@ -15,11 +15,16 @@ Device policy (``utils.device``): every public entry takes an explicit
 CPU, mirroring the JAX test suite's x64 mode, and in float32 on the card,
 mirroring JAX's default mode. Nothing falls back to the CPU on its own.
 
-The package imports torch and never jax; it shares only the NumPy-only
-modules ``letf_tpu.config``, ``letf_tpu.models.params``,
-``letf_tpu.reporting`` (tax configuration), ``letf_tpu.income`` and
-``letf_tpu.tax.engine`` / ``letf_tpu.tax.brackets`` (the statute) with
-the reference.
+The production entry runs from the data to the fans
+(``runner.run_report``, ``python -m letf_tpu_torch.cli --report``): the
+offline market history (``data.py`` on ``utils/frame.py``, a pandas-free
+day frame), the calibration of every model (``calibration.py``, its fits
+in float64 on the device, ``ops/fitting.py``), the golden tax gate
+(``tax/engine.py``) and one report per horizon.
+
+The package imports torch, numpy and scipy, and never jax, the JAX
+package or pandas: it keeps its own copies of the configuration, the
+model tree, the tax statute and the income path.
 """
 
 __version__ = "0.2.0"

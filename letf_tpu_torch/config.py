@@ -3,19 +3,51 @@
 The port's own copy of ``letf_tpu/config.py`` (same names, same values):
 the asset table, transaction costs and cash rates, the Monte Carlo and
 regime parameters, the engine mode, random-start settings and the strategy
-table. The JAX package's cache paths and banner are left out. The port
-imports nothing of the JAX package; ``tests/test_torch_params.py`` holds
-this copy equal to the original.
+table, the date ranges and horizons, the cache paths and the banner. The
+port imports nothing of the JAX package; ``tests/test_torch_params.py``
+holds this copy equal to the original.
+
+One deliberate difference: ``CACHE_DIR`` is the port's own directory. The
+JAX package's ``letf_tpu_cache_v1/`` holds its committed fits, and a port
+that read them would never calibrate; nothing of the port writes there.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from pathlib import Path
 from typing import Dict, Tuple
 
 import numpy as np
 
+# Date and capital constants.
+DATA_START_DATE = "1926-07-01"
+DATA_END_DATE = "2025-12-31"
 INITIAL_CAPITAL = 10_000.0
+
+ANALYSIS_START_DATE = "1926-07-01"
+ANALYSIS_END_DATE = "2025-12-31"
+
+FAMA_FRENCH_END_DATE = "1949-12-31"
+YFINANCE_START_DATE = "1950-01-01"
+
+TIME_HORIZONS = [1, 2, 5, 10, 20, 30, 40, 50]
+
+START_DATE_OPTIONS = {
+    1: {"date": "1926-07-01", "name": "Full History",
+        "description": "Includes Great Depression, WWII, all major events"},
+    2: {"date": "1950-01-01", "name": "Post-WWII",
+        "description": "More reliable data, excludes pre-war period"},
+    3: {"date": "1980-01-01", "name": "Modern Era",
+        "description": "After stagflation, more relevant to today"},
+    4: {"date": "2000-01-01", "name": "21st Century",
+        "description": "Includes dot-com crash, 2008 crisis, COVID"},
+    5: {"date": "2010-01-01", "name": "Post-Crisis",
+        "description": "TQQQ real data begins, bull market era"},
+    6: {"date": "2015-01-01", "name": "Recent History",
+        "description": "Last 10 years only"},
+}
+
 TRADING_DAYS = 252
 
 # Underlying index streams of the joint return model.
@@ -106,6 +138,43 @@ REGIME_NAMES = {0: "Low Vol", 1: "High Vol"}
 MIN_REGIME_DURATION = {0: 60, 1: 20}
 MAX_DWELL_SAMPLES = 256
 
+# Cache: the port's own directory (see the module docstring).
+CACHE_DIR = Path("letf_tpu_torch_cache")
+
+DATA_CACHE = CACHE_DIR / "historical_data.pkl"
+REGIME_MODEL_CACHE = CACHE_DIR / "regime_model.pkl"
+CORRELATION_CACHE = CACHE_DIR / "correlations.pkl"
+VALIDATION_RESULTS = CACHE_DIR / "validation_results.json"
+JOINT_RETURN_MODEL_CACHE = CACHE_DIR / "joint_return_model.pkl"
+FUNDING_MODEL_CACHE = CACHE_DIR / "funding_spread_model.pkl"
+TRACKING_RESIDUAL_CACHE = CACHE_DIR / "tracking_residual_model.pkl"
+STRESS_STATE_CACHE = CACHE_DIR / "stress_state_model.pkl"
+BOOTSTRAP_CACHE = CACHE_DIR / "bootstrap_data.pkl"
+
+
+def init_cache() -> None:
+    CACHE_DIR.mkdir(exist_ok=True)
+
+
+def get_cache_filenames(start_date: str, end_date: str) -> Dict[str, Path]:
+    date_suffix = f"{start_date[:4]}_{end_date[:4]}"
+    return {
+        "data": CACHE_DIR / f"historical_data_{date_suffix}.pkl",
+        "regime": CACHE_DIR / f"regime_model_{date_suffix}.pkl",
+        "correlation": CACHE_DIR / f"correlations_{date_suffix}.pkl",
+        "validation": CACHE_DIR / f"validation_results_{date_suffix}.json",
+    }
+
+
+def clear_all_caches() -> None:
+    if CACHE_DIR.exists():
+        for f in CACHE_DIR.glob("*.pkl"):
+            f.unlink()
+        for f in CACHE_DIR.glob("*.json"):
+            f.unlink()
+        print("All caches cleared")
+
+
 # Engine mode and the parametric generator.
 STUDENT_T_DF = 5
 BOOTSTRAP_WEIGHT = 0.80
@@ -177,3 +246,25 @@ N_STRATEGIES = len(STRATEGY_IDS)
 ROTH_IDS = ["S1", "S2", "S3", "S4", "S5", "S6"]
 TAXABLE_IDS = ["S7", "S8", "S9", "S10", "S11", "S12", "S13", "S14", "S15",
                "S16", "S17", "S18", "S19"]
+
+
+def print_banner(device="cuda") -> None:
+    """The reference's banner, naming the torch device it runs on."""
+    import torch
+
+    dev = torch.device(device)
+    name = (torch.cuda.get_device_name(dev) if dev.type == "cuda"
+            else "CPU")
+    print(f"\n{'=' * 80}")
+    print("LETF MONTE CARLO - PyTorch/CUDA port (hand-written CUDA kernels)")
+    print(f"{'=' * 80}")
+    print("Engine: chunked trial batches on one device, CUDA C++ day kernels")
+    print("  1. Volatility drag: correct geometric compounding of L*r - costs")
+    print("  2. Tracking error: additive AR(1) with fat tails + EMA de-bias")
+    print("  3. Regime model: volatility-driven semi-Markov with dwell tables")
+    print("  4. Joint returns: regime-conditional multivariate-t + GARCH/DCC-lite")
+    print("  5. State-linked funding spread + latent liquidity/credit stress")
+    print("  6. Full US tax engine (IRC 1222/1211/1212, wash sale, lot selection)")
+    print(f"{'=' * 80}")
+    print(f"System: {dev} ({name}), {NUM_SIMULATIONS} sims/horizon")
+    print(f"{'=' * 80}\n")

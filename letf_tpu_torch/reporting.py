@@ -17,8 +17,8 @@ chunk by chunk, with the strategies folded into batches of at most
 reference's do.
 
 The port keeps its own copies of the reference's tax configuration
-(``DEFAULT_TAX_CONFIG``, ``MAX_TAX_SIMS``, ``_income_kwargs``) and of the
-income path (``letf_tpu_torch/income.py``).
+(``STATE_TAX_INFO``, ``DEFAULT_TAX_CONFIG``, ``MAX_TAX_SIMS``,
+``_income_kwargs``) and of the income path (``letf_tpu_torch/income.py``).
 
 The interpolation is a plain index lookup (``torch.searchsorted`` plus
 gathers) in the working precision; the reference's one-hot matmul was a
@@ -44,9 +44,21 @@ from letf_tpu_torch.tax.device_bridge import (
 from letf_tpu_torch.tax.vectorized import total_tax_all_trials
 from letf_tpu_torch.utils.device import glue_dtype
 
-# The reference's sampled-tax budget and default tax configuration
-# (letf_tpu/reporting.py:42-51), and the exact path's fold: at most this
-# many rows (trials x strategies) in one bridge batch (reporting.py:517).
+# The reference's state table, sampled-tax budget and default tax
+# configuration (letf_tpu/reporting.py:30-51), and the exact path's fold:
+# at most this many rows (trials x strategies) in one bridge batch
+# (reporting.py:517).
+STATE_TAX_INFO = {
+    "CA": {"name": "California", "rate": 0.093},
+    "NY": {"name": "New York", "rate": 0.065},
+    "TX": {"name": "Texas", "rate": 0.0},
+    "FL": {"name": "Florida", "rate": 0.0},
+    "WA": {"name": "Washington", "rate": 0.07},
+    "NV": {"name": "Nevada", "rate": 0.0},
+    "IL": {"name": "Illinois", "rate": 0.0495},
+    "MA": {"name": "Massachusetts", "rate": 0.05},
+    "NJ": {"name": "New Jersey", "rate": 0.0637},
+}
 MAX_TAX_SIMS = 50
 FOLD_ROWS = 8192
 DEFAULT_TAX_CONFIG = {

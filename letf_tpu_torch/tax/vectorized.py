@@ -4,7 +4,7 @@ Port of ``letf_tpu/tax/vectorized.py``: ``_piecewise``, ``_inflated_tax``,
 ``net_years`` (a loop over the Y years), ``comprehensive_tax`` and
 ``total_tax_all_trials``. Netting calls the port's copy of the statute,
 ``tax/engine.py::_net_core``, through its ``xp=(minimum, maximum)`` pair
-with torch versions that accept Python-float operands; the bracket tables
+``engine.TORCH_XP`` (torch versions that accept Python-float operands); the bracket tables
 are ``tax/brackets.py``. Tensors run in the dtype of the yearly activity.
 """
 
@@ -23,29 +23,14 @@ from letf_tpu_torch.tax.brackets import (
     STATE_TAX_BRACKETS,
     bracket_arrays,
 )
-from letf_tpu_torch.tax.engine import CapitalLossUsageStrategy, _net_core
+from letf_tpu_torch.tax.engine import (
+    TORCH_XP,
+    CapitalLossUsageStrategy,
+    _net_core,
+)
 
 _BRACKET_INFLATION = 0.025
 _MARGIN_RATE = 0.06
-
-
-def _minimum(a, b):
-    """torch.minimum that accepts a Python float on either side."""
-    if not isinstance(a, torch.Tensor):
-        a, b = b, a
-    return torch.minimum(a, b) if isinstance(b, torch.Tensor) \
-        else torch.clamp_max(a, b)
-
-
-def _maximum(a, b):
-    """torch.maximum that accepts a Python float on either side."""
-    if not isinstance(a, torch.Tensor):
-        a, b = b, a
-    return torch.maximum(a, b) if isinstance(b, torch.Tensor) \
-        else torch.clamp_min(a, b)
-
-
-_XP = (_minimum, _maximum)
 
 
 def _piecewise(x, limits, rates):
@@ -75,7 +60,7 @@ def net_years(st_gains, st_losses, lt_gains, lt_losses,
     for y in range(Y):
         t_st, t_lt, cf_st, cf_lt, ded = _net_core(
             st_gains[:, y], st_losses[:, y], lt_gains[:, y], lt_losses[:, y],
-            cf_st, cf_lt, strategy, _XP)
+            cf_st, cf_lt, strategy, TORCH_XP)
         outs.append((t_st, t_lt, ded))
     t_st, t_lt, ded = (torch.stack(v, dim=1) for v in zip(*outs))
     return t_st, t_lt, ded, cf_st, cf_lt

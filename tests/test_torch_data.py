@@ -1,0 +1,242 @@
+"""The port's offline data layer against the JAX package and pandas.
+
+- ``generate_synthetic_history`` and ``reconstruct_letf_columns`` equal the
+  JAX package's bit for bit, column by column (same seeds, same draws).
+- The full-range ``fetch_historical_data(force_synthetic=True)`` equals
+  the committed ``letf_tpu_cache_v1/historical_data.pkl`` (read here with
+  pandas): the generated and reconstructed columns bit for bit, the
+  rolling and EWM indicator columns within rtol 1e-12.
+- The frame operations of ``utils/frame.py`` equal pandas' on series with
+  NaNs made by hypothesis: the fills, diff and cumprod exactly; rolling
+  means and EWM std exactly; rolling std exactly on NaN-free series and
+  within rtol 1e-12 (atol 1e-12 of the series' scale) with NaNs, where
+  pandas 3.0's restart of a window left with one value is matched but its
+  compensation terms are not.
+- The network loaders return None where their packages cannot be
+  imported, and raise naming ROADMAP item 14 where they can.
+Every cache path of the port points at a temporary directory.
+"""
+
+import importlib.util
+from pathlib import Path
+
+import numpy as np
+import pandas as pd
+import pytest
+from hypothesis import given, settings
+from hypothesis import strategies as hst
+
+from letf_tpu import data as jdata
+from letf_tpu_torch import config as tcfg
+from letf_tpu_torch import data as tdata
+from letf_tpu_torch.utils import frame as F
+
+ROOT = Path(__file__).resolve().parents[1]
+COMMITTED = ROOT / "letf_tpu_cache_v1" / "historical_data.pkl"
+INDICATORS = ("SMA200", "Market_Vol_EWMA", "Market_Vol_20d", "Market_Vol")
+CACHE_NAMES = ("DATA_CACHE", "REGIME_MODEL_CACHE", "CORRELATION_CACHE",
+               "VALIDATION_RESULTS", "JOINT_RETURN_MODEL_CACHE",
+               "FUNDING_MODEL_CACHE", "TRACKING_RESIDUAL_CACHE",
+               "STRESS_STATE_CACHE", "BOOTSTRAP_CACHE")
+
+
+@pytest.fixture(autouse=True)
+def port_cache(tmp_path, monkeypatch):
+    """Every cache path of the port in a fresh temporary directory."""
+    monkeypatch.setattr(tcfg, "CACHE_DIR", tmp_path)
+    for name in CACHE_NAMES:
+        monkeypatch.setattr(tcfg, name, tmp_path / getattr(tcfg, name).name)
+    return tmp_path
+
+
+def as_frame(df: pd.DataFrame) -> F.Frame:
+    return F.Frame({c: df[c].to_numpy() for c in df.columns},
+                   df.index.values.astype("datetime64[D]"))
+
+
+def assert_frame_matches(got: F.Frame, ref: pd.DataFrame, loose=()):
+    assert got.columns == list(ref.columns)
+    np.testing.assert_array_equal(got.index,
+                                  ref.index.values.astype("datetime64[D]"))
+    for c in ref.columns:
+        want = ref[c].to_numpy()
+        if c == "Data_Source":
+            assert (got[c] == want.astype(str)).all()
+        elif c in loose:
+            np.testing.assert_allclose(got[c], want, rtol=1e-12, err_msg=c)
+        else:
+            assert got[c].dtype == want.dtype, c
+            np.testing.assert_array_equal(got[c], want, err_msg=c)
+
+
+@pytest.fixture(scope="module")
+def short():
+    """The JAX package's and the port's 2000-2025 synthetic history."""
+    return (jdata.generate_synthetic_history("2000-01-01", "2025-12-31"),
+            tdata.generate_synthetic_history("2000-01-01", "2025-12-31"))
+
+
+def test_synthetic_history_equals_jax_bit_for_bit(short):
+    ref, got = short
+    assert len(got) == 6783
+    assert_frame_matches(got, ref)
+
+
+def test_reconstruction_equals_jax_bit_for_bit(short):
+    ref, got = short
+    assert_frame_matches(tdata.reconstruct_letf_columns(got.copy()),
+                         jdata.reconstruct_letf_columns(ref.copy()))
+
+
+def test_full_history_equals_the_committed_pickle(port_cache):
+    """The 1926-2025 offline history: 25,960 days x 38 columns, the
+    committed JAX-package cache's values; a second call reads the port's
+    own cache and nothing is written into the JAX package's."""
+    before = {p.name: p.stat().st_mtime_ns
+              for p in COMMITTED.parent.iterdir()}
+    got = tdata.fetch_historical_data(force_synthetic=True)
+    ref = pd.read_pickle(COMMITTED)
+    assert len(got) == 25_960 and len(got.columns) == 38
+    assert_frame_matches(got, ref, loose=INDICATORS)
+    assert (port_cache / "historical_data.pkl").exists()
+    again = tdata.fetch_historical_data(force_synthetic=True)
+    for c in got.columns:
+        np.testing.assert_array_equal(again[c], got[c])
+    assert {p.name: p.stat().st_mtime_ns
+            for p in COMMITTED.parent.iterdir()} == before
+
+
+def test_offline_fetch_without_loaders_is_the_synthetic_route(monkeypatch):
+    """force_synthetic=False with neither loader importable takes the
+    synthetic route, as the reference does offline."""
+    monkeypatch.setattr(tcfg, "ANALYSIS_START_DATE", "2020-01-01")
+    got = tdata.fetch_historical_data(force_synthetic=False)
+    assert str(got.index[0]) == "2020-01-01"
+    assert (got["Data_Source"] == "synthetic-offline").all()
+
+
+def test_network_loaders_gate(monkeypatch):
+    real = importlib.util.find_spec
+    if real("pandas_datareader") is None and real("yfinance") is None:
+        assert tdata.fetch_fama_french_data("1926-07-01", "1949-12-31") is None
+        assert tdata.fetch_market_data("1950-01-01", "2025-12-31") is None
+        assert jdata.fetch_market_data("1950-01-01", "2025-12-31") is None
+
+    def find_spec(name, *a, **kw):
+        if name in ("pandas_datareader", "yfinance"):
+            return object()
+        return real(name, *a, **kw)
+
+    monkeypatch.setattr(importlib.util, "find_spec", find_spec)
+    for fn in (tdata.fetch_fama_french_data, tdata.fetch_market_data):
+        with pytest.raises(NotImplementedError, match="ROADMAP item 14"):
+            fn("1950-01-01", "2025-12-31")
+    with pytest.raises(NotImplementedError, match="ROADMAP item 14"):
+        tdata.fetch_historical_data(force_synthetic=False)
+
+
+def test_backfill_branches(monkeypatch):
+    """The VIX and IRX backfills of the offline route equal the
+    reference's pandas expressions; the dynamic-factor backfills (network
+    data only) raise naming item 14."""
+    gen = tdata.generate_synthetic_history
+    df = gen("2024-01-01", "2025-12-31")
+    rng = np.random.default_rng(3)
+    holes = rng.random(len(df)) < 0.1
+    vix, irx = df["VIX"].copy(), df["IRX"].copy()
+    vix[holes] = np.nan
+    irx[holes] = np.nan
+    irx[:5] = np.nan
+    df["VIX"], df["IRX"] = vix, irx
+    rf = df["RF"].copy()
+    rf[rng.random(len(df)) < 0.5] = np.nan
+    df["RF"] = rf
+    spy, tnx = df["SPY_Ret"].copy(), df["TNX"].copy()
+    monkeypatch.setattr(tdata, "generate_synthetic_history", lambda: df)
+    monkeypatch.setattr(tcfg, "ANALYSIS_START_DATE", "2024-01-01")
+    got = tdata.fetch_historical_data(force_synthetic=True)
+
+    s = pd.Series(vix)
+    want_vix = s.fillna(pd.Series(spy).rolling(20).std()
+                        * np.sqrt(252) * 100).fillna(20.0)
+    w = pd.Series(irx).fillna(pd.Series(rf) * 252 * 100)
+    w = w.fillna((0.55 * pd.Series(tnx)).clip(lower=0.0))
+    want_irx = w.interpolate(limit_direction="both").ffill().fillna(3.0)
+    np.testing.assert_array_equal(got["VIX"], want_vix.to_numpy())
+    np.testing.assert_array_equal(got["IRX"], want_irx.to_numpy())
+
+    df2 = gen("2024-01-01", "2025-12-31")
+    tlt = df2["TLT_Ret"].copy()
+    tlt[3] = np.nan
+    df2["TLT_Ret"] = tlt
+    monkeypatch.setattr(tdata, "generate_synthetic_history", lambda: df2)
+    Path(tcfg.DATA_CACHE).unlink()
+    with pytest.raises(NotImplementedError, match="ROADMAP item 14"):
+        tdata.fetch_historical_data(force_synthetic=True)
+
+
+def test_bdate_range_and_frame_selection():
+    for a, b in (("1926-07-01", "2025-12-31"), ("2024-02-28", "2024-03-04")):
+        np.testing.assert_array_equal(
+            F.bdate_range(a, b),
+            pd.bdate_range(a, b).values.astype("datetime64[D]"))
+    idx = pd.bdate_range("2020-01-01", "2020-03-31")
+    x = np.arange(len(idx), dtype=float)
+    x[[3, 7]] = np.nan
+    ref = pd.DataFrame({"a": x, "b": -x}, index=idx)
+    got = as_frame(ref)
+    sel = got.between("2020-01-15", "2020-02-20")
+    np.testing.assert_array_equal(
+        sel["a"], ref.loc["2020-01-15":"2020-02-20", "a"].to_numpy())
+    np.testing.assert_array_equal(
+        got.dropna(["a"])["b"], ref.dropna(subset=["a"])["b"].to_numpy())
+    np.testing.assert_array_equal(got.take(x > 10)["a"],
+                                  ref.loc[x > 10, "a"].to_numpy())
+
+
+_value = hst.one_of(hst.floats(-1.0, 1.0, allow_nan=False, width=64),
+                    hst.just(float("nan")), hst.just(0.25))
+
+
+@settings(max_examples=80, deadline=None)
+@given(hst.lists(_value, min_size=1, max_size=120),
+       hst.sampled_from([1, 2, 3, 5, 20]), hst.sampled_from([None, 1, 2, 5]),
+       hst.sampled_from([1e-3, 1.0, 1e3]))
+def test_frame_ops_equal_pandas(values, window, min_periods, scale):
+    x = np.asarray(values) * scale
+    s = pd.Series(x)
+    if min_periods is not None and min_periods > window:
+        min_periods = window
+    same = np.testing.assert_array_equal
+    same(F.rolling_mean(x, window, min_periods),
+         s.rolling(window, min_periods=min_periods).mean().to_numpy())
+    same(F.ewm_std(x, 20), s.ewm(span=20, adjust=False).std().to_numpy())
+    std = F.rolling_std(x, window, min_periods)
+    want = s.rolling(window, min_periods=min_periods).std().to_numpy()
+    if np.isnan(x).any():
+        np.testing.assert_allclose(std, want, rtol=1e-12, atol=1e-12 * scale)
+    else:
+        same(std, want)
+    same(F.ffill(x), s.ffill().to_numpy())
+    same(F.bfill(x), s.bfill().to_numpy())
+    same(F.fillna(x, 0.5), s.fillna(0.5).to_numpy())
+    same(F.fillna(x, -x), s.fillna(pd.Series(-x)).to_numpy())
+    same(F.interpolate_both(x),
+         s.interpolate(limit_direction="both").to_numpy())
+    same(F.diff(x), s.diff().to_numpy())
+    same(F.cumprod(1 + x), (1 + s).cumprod().to_numpy())
+
+
+def test_rolling_std_long_series_bitwise():
+    """On NaN-free return series of history length the online algorithm is
+    pandas' bit for bit (the regime inference's thresholds see the same
+    realized vol)."""
+    x = np.random.default_rng(5).standard_t(4, 26_000) * 0.01
+    s = pd.Series(x)
+    for w, mp in ((20, None), (20, 5), (200, 1)):
+        np.testing.assert_array_equal(
+            F.rolling_std(x, w, mp),
+            s.rolling(w, min_periods=mp).std().to_numpy())
+        np.testing.assert_array_equal(
+            F.rolling_mean(x, w, mp),
+            s.rolling(w, min_periods=mp).mean().to_numpy())

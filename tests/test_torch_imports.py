@@ -1,6 +1,7 @@
-"""The port imports torch and nothing of JAX or the JAX package; nothing
-falls back to the CPU; the port's copies of the JAX package's tax statute,
-income path and tax configuration equal their originals."""
+"""The port imports torch and nothing of JAX, the JAX package, pandas or
+the network data loaders; nothing falls back to the CPU; the port's copies
+of the JAX package's tax statute, income path and tax configuration equal
+their originals."""
 
 import ast
 import os
@@ -23,6 +24,11 @@ from letf_tpu_torch import income, reporting
 from letf_tpu_torch.tax import brackets, engine
 
 PKG = Path(letf_tpu_torch.__file__).resolve().parent
+# The JAX package (every module of it, even those that import no JAX),
+# JAX itself, and pandas with the network loaders: the card's machine has
+# no pandas, and the port's data layer is its own day frame.
+REFUSED = ("jax", "jaxlib", "letf_tpu", "pandas", "pandas_datareader",
+           "yfinance")
 ROOT = PKG.parent
 MODULES = sorted(
     ".".join(p.relative_to(ROOT).with_suffix("").parts).replace(
@@ -42,15 +48,16 @@ def chip_smoke_imports():
 
 
 def test_port_imports_nothing_of_jax_in_a_fresh_interpreter():
-    """An import hook that refuses jax and letf_tpu (the JAX package, every
-    module of it, even those that import no JAX) is installed before
-    anything else; every port module and every chip_smoke.py import must
-    still load (conftest already imported jax in this process)."""
+    """An import hook that refuses jax, letf_tpu (the JAX package, every
+    module of it, even those that import no JAX), pandas,
+    pandas_datareader and yfinance is installed before anything else;
+    every port module and every chip_smoke.py import must still load
+    (conftest already imported jax in this process)."""
     mods = MODULES + chip_smoke_imports() + ["chip_smoke"]
     code = ("import sys\n"
             "class Refuse:\n"
             "    def find_spec(self, name, path=None, target=None):\n"
-            "        if name.split('.')[0] in ('jax', 'jaxlib', 'letf_tpu'):\n"
+            f"        if name.split('.')[0] in {REFUSED!r}:\n"
             "            raise ImportError('refused: ' + name)\n"
             "        return None\n"
             "sys.meta_path.insert(0, Refuse())\n"
@@ -58,7 +65,7 @@ def test_port_imports_nothing_of_jax_in_a_fresh_interpreter():
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
-            "             ('jax', 'jaxlib', 'letf_tpu', 'triton'))\n"
+            f"             {REFUSED + ('triton',)!r})\n"
             "assert not bad, bad\n"
             "print('ok', len(sys.modules))\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -69,12 +76,15 @@ def test_port_imports_nothing_of_jax_in_a_fresh_interpreter():
     assert out.stdout.startswith("ok"), out.stdout
     assert "letf_tpu_torch.ops.strategies" in MODULES
     assert "letf_tpu_torch.ops.gbm" in MODULES
+    for m in ("calibration", "data", "runner", "cli", "utils.frame"):
+        assert f"letf_tpu_torch.{m}" in MODULES
 
 
 def test_sources_have_no_jax_import_and_no_fallback():
-    """No module of the port, and not chip_smoke.py, imports jax or any
-    module of the JAX package (the allow-list is empty); kernel wrappers
-    have no torch.compile and no try around a build or launch."""
+    """No module of the port, and not chip_smoke.py, imports jax, any
+    module of the JAX package, pandas or the network loaders (the
+    allow-list is empty); kernel wrappers have no torch.compile and no try
+    around a build or launch."""
     for path in [*PKG.rglob("*.py"), ROOT / "chip_smoke.py"]:
         tree = ast.parse(path.read_text())
         for node in ast.walk(tree):
@@ -87,8 +97,7 @@ def test_sources_have_no_jax_import_and_no_fallback():
                     assert not isinstance(node, ast.Try), path
                 continue
             for n in names:
-                assert n.split(".")[0] not in ("jax", "jaxlib", "letf_tpu"), \
-                    (path, n)
+                assert n.split(".")[0] not in REFUSED, (path, n)
         assert "torch.compile" not in path.read_text(), path
 
 
@@ -141,6 +150,7 @@ def test_brackets_income_and_tax_config_copies_equal():
             income.simulate_wired_income_path(150000, 30, **kw),
             jincome.simulate_wired_income_path(150000, 30, **kw))
     assert reporting.MAX_TAX_SIMS == jreporting.MAX_TAX_SIMS
+    assert reporting.STATE_TAX_INFO == jreporting.STATE_TAX_INFO
     assert reporting.DEFAULT_TAX_CONFIG == jreporting.DEFAULT_TAX_CONFIG
     cfg = dict(jreporting.DEFAULT_TAX_CONFIG, years_until_retirement=12)
     assert reporting._income_kwargs(cfg) == jreporting._income_kwargs(cfg)

@@ -138,11 +138,22 @@ def test_nearest_psd_matrix_equals_jax():
 
 
 def test_config_copy_equals_jax():
-    """Every constant the port copies has the JAX package's value."""
+    """Every constant the port copies has the JAX package's value. The one
+    exception is the cache: the port's ``CACHE_DIR`` is its own directory,
+    because the JAX package's holds that package's committed fits (a port
+    reading them would never calibrate, and must never write there); each
+    cache file keeps the reference's name inside it."""
     names = [n for n in dir(tcfg) if n.isupper()]
-    assert len(names) > 30
+    assert len(names) > 40
+    assert tcfg.CACHE_DIR != jcfg.CACHE_DIR
+    assert tcfg.CACHE_DIR.resolve() != jcfg.CACHE_DIR.resolve()
     for n in names:
         a, b = getattr(tcfg, n), getattr(jcfg, n)
+        if n.endswith(("_CACHE", "_RESULTS")):
+            assert a == tcfg.CACHE_DIR / b.name, n
+            continue
+        if n == "CACHE_DIR":
+            continue
         if isinstance(b, dict) and b and dataclasses.is_dataclass(
                 next(iter(b.values()))):
             assert {k: dataclasses.asdict(v) for k, v in a.items()} == {
@@ -153,3 +164,7 @@ def test_config_copy_equals_jax():
     for f in dataclasses.fields(ja):
         np.testing.assert_array_equal(getattr(ta, f.name),
                                       getattr(ja, f.name))
+    for a, b in zip(tcfg.get_cache_filenames("1950-01-01", "2025-12-31")
+                    .items(), jcfg.get_cache_filenames("1950-01-01",
+                                                       "2025-12-31").items()):
+        assert a[0] == b[0] and a[1] == tcfg.CACHE_DIR / b[1].name
