@@ -19,7 +19,7 @@ Phases, each raising on failure:
    below), K2 (window) bitwise (independent, antithetic-paired and equal
    offsets, a ragged B of 650, a span past one 32-trial ring), K3
    (compose + strategies) within compose_strategies.check_parity's
-   bounds, K5 (compose) within rtol 1e-5 / atol 1e-6 and bit for bit the
+   bounds over the first 2,520 days (PLAIN_DAYS), K5 (compose) within rtol 1e-5 / atol 1e-6 and bit for bit the
    first port's kernel at 16,384 and at the report's 650 trials (its
    output digests, stored below), K7 (bridge merge,
    merge and valley kinds, [2S, 600] and [2S, 2,048] with 0/2/4 payloads,
@@ -53,8 +53,9 @@ Phases, each raising on failure:
    sampled taxes, the seconds of each stage of one of its chunks, K4
    (strategies) on that chunk's channels bit for bit the first port's
    kernel (its output digests, stored below) and within check_parity's
-   bounds of its plain version (channel mode over 16,384 x 7,560 days,
-   fused-signals mode over its first 504), then the parametric report
+   bounds of its plain version (channel mode over 16,384 trials and the
+   first 2,520 of its 7,560 days, fused-signals mode over its first 504),
+   then the parametric report
    through kernels and through plain versions (1,024 x 0.5 year), and the
    first 1,024 trials of the parametric run held to the JAX package's
    (constants below).
@@ -69,13 +70,30 @@ Phases, each raising on failure:
    the kernels' launches; (d) the first 1,024 trials x 30 years on the
    committed fits against the JAX package's (JAX_CAL_*); (e) cli --report
    --synthetic-data --sims 16384 --horizons 1 on the warm cache.
-10. The buy-and-hold headline: K6 against the port of the XLA twin by
+10. The reference's complete analysis (phase_analysis), in a temporary
+   cache of the port's: (1) runner.run(horizons=[10, 20, 30], seed 0,
+   force_synthetic=True) at its 200 trials, its timing summary logged and
+   its output in build/analysis/analysis_run.txt: every summary number
+   finite, the launches of each kernel, the results lists equal to
+   run_monte_carlo's arrays, the battery's JSON (the zero-drift invariant
+   passes, the structural checks equal the JAX package's, the rolling
+   OOS ran 3 splits), K4 on the historical backtest's windows against its
+   plain version and K1, K3 at the run's 200 trials against theirs; (2)
+   the results list's first 200 trials x 10 y on the committed fits and
+   the backtests against the JAX package's numbers (ANALYSIS_*, printed by
+   tools/analysis_reference.py); (3) the Trade_Replay route,
+   parallel_monte_carlo_fixed at 4,096 x 30 y, create_summary_statistics
+   sampled and with exact_tax_all_trials (K7, K8), the exact taxes held
+   to the host tax chain's at the sampled trials; (4) the CLI's default
+   branch (--synthetic-data --sims 64 --horizons 10) and --quick as
+   subprocesses.
+11. The buy-and-hold headline: K6 against the port of the XLA twin by
    bench.py's distribution gate (262,144 x 10 years), then
    gbm_percentile_report(1, 1,048,576, 30) after a seed-0 warm-up, held
    to the first port's K6 (its values, stored below).
-11. The validation invariants: zero-drift drag through K3, flat-market
+12. The validation invariants: zero-drift drag through K3, flat-market
    decay through K6.
-12. torch.profiler breakdowns of one pre-tax chunk and of the post-tax part
+13. torch.profiler breakdowns of one pre-tax chunk and of the post-tax part
    of a one-chunk sampled report; a breakdown of one 4,096-trial
    exact-tax chunk by stage (host clock, CUDA events, nvidia-smi's busy
    samples).
@@ -92,6 +110,7 @@ import hashlib
 import io
 import json
 import math
+import os
 import pickle
 import shutil
 import subprocess
@@ -106,6 +125,11 @@ import torch
 B_CHUNK = 16384
 QUICK = dict(sim=252, buf=126)
 FULL = dict(sim=30 * 252, buf=5 * 252)
+# K3 and K4 against their plain versions over the first 10 years of the
+# 30-year chunk: the plain versions are host-bound day loops (~110 s and
+# ~95 s over all 7,560 days), and the smoke's time goes to the full
+# analysis (phase_analysis); the kernels are timed at the full shape.
+PLAIN_DAYS = 10 * 252
 
 # The H100 SXM's published peaks (NVIDIA data sheet): HBM bytes/s and
 # float32 operations/s outside the tensor cores.
@@ -403,8 +427,12 @@ def phase_kernels(model_t, quick: bool):
     ka = k3_args(model_t, ids, sw, chans)
     k3_ms, got = spread(lambda: k3.compose_strategies(*ka), 3)
     ms = k3_ms[1]
-    plain_ms, ref = timed(lambda: k3.compose_strategies_plain(*ka), 1,
+    plain_days = min(sim, PLAIN_DAYS)
+    kc = (*ka[:4], *(c[:plain_days].contiguous() for c in ka[4:]))
+    got = k3.compose_strategies(*kc)
+    plain_ms, ref = timed(lambda: k3.compose_strategies_plain(*kc), 1,
                           warm=False)
+    del kc
     st = k3.check_parity(dict(zip(k3.OUTPUTS, got)),
                          dict(zip(k3.OUTPUTS, ref)),
                          exact=("path_finite", "vix_min", "vix_max",
@@ -414,11 +442,13 @@ def phase_kernels(model_t, quick: bool):
     q = B_CHUNK // 4
     kq = (*ka[:2], ka[2][:q], ka[3], *(c[:, :q].contiguous() for c in ka[4:]))
     k3q_ms, _ = spread(lambda: k3.compose_strategies(*kq), 3)
-    log(f"K3 compose_strategies vs plain at B={B_CHUNK} S={sim}: {st}; "
-        f"kernel {fmt_spread(k3_ms)} over 3 runs (at B={B_CHUNK // 4}: "
-        f"{fmt_spread(k3q_ms)}), plain {plain_ms:.3f} ms")
+    log(f"K3 compose_strategies vs plain at B={B_CHUNK} over the first "
+        f"{plain_days} days: {st}; kernel {fmt_spread(k3_ms)} over 3 runs at "
+        f"S={sim} (at B={B_CHUNK // 4}: {fmt_spread(k3q_ms)}), plain "
+        f"{plain_ms:.3f} ms at S={plain_days}")
     rec["compose_strategies"] = with_bound(
         dict(max_abs_err=st["max_abs_err"], ms=ms, plain_ms=plain_ms,
+             days=sim, plain_days=plain_days,
              ms_spread=k3_ms, quarter_ms_spread=k3q_ms),
         6 * sim * B_CHUNK * 4 + 65 * B_CHUNK * 4,
         OPS_PER_TRIAL_DAY["compose_strategies"] * sim * B_CHUNK)
@@ -1396,13 +1426,15 @@ def k4_digests(chans) -> dict:
     return {k: [bit_digest(x) for x in fn()] for k, fn in runs.items()}
 
 
-def phase_k4(chans, fused_plain_days=504, digests=False):
+def phase_k4(chans, fused_plain_days=504, digests=False,
+             plain_days=PLAIN_DAYS):
     """K4 against its plain version on the card on the 23 channels
     ``chans`` [S, B] within compose_strategies.check_parity's bounds (the
     plain loop and the kernel differ by float32 ulps of division and powf
     that flip borderline trades). The full run gives it the main path's own
     channels, one parametric chunk of 16,384 trials x 7,560 days, compares
-    channel mode, the main path's, over all of them, and with ``digests``
+    channel mode, the main path's, over their first ``plain_days`` days
+    (the plain loop is host-bound, ~13 ms a day), and with ``digests``
     holds both modes (and a run with cashflows and no costs) bit for bit to
     the first port's kernel (K4_DIGESTS_FIRST_PORT). Fused-signals mode
     (the first 7 channels) runs on no main path and is held bitwise to K3
@@ -1434,9 +1466,10 @@ def phase_k4(chans, fused_plain_days=504, digests=False):
             extra["quarter_ms_spread"], _ = spread(
                 lambda: k4.strategies_run(cq), 3)
             del cq
-        if fused:
-            cs = [c[:fused_plain_days] for c in cs]
-            got = k4.strategies_run(cs, fused_signals=True)
+        cut = fused_plain_days if fused else plain_days
+        if cut < S:
+            cs = [c[:cut] for c in cs]
+            got = k4.strategies_run(cs, fused_signals=fused)
         plain_ms, ref = timed(
             lambda: k4.strategies_plain(cs, fused_signals=fused), 1,
             warm=False)
@@ -2418,6 +2451,529 @@ def phase_calibrated(counters, smi):
     return launches
 
 
+# Constants of the analysis phase: the JAX package's numbers on the CPU
+# (float32) over the committed fits and history, printed by
+# tools/analysis_reference.py.
+ANALYSIS_START_OFFSETS = (123, 123, 1142, 1142, 169, 169, 333, 333, 823, 823, 1169, 1169, 659, 659, 613, 613, 1108, 1108, 435, 435, 377, 377, 145, 145, 386, 386, 461, 461, 77, 77, 1103, 1103, 631, 631, 1231, 1231, 417, 417, 408, 408, 1212, 1212, 426, 426, 1252, 1252, 1171, 1171, 1234, 1234, 465, 465, 943, 943, 1174, 1174, 1237, 1237, 139, 139, 585, 585, 1065, 1065, 859, 859, 189, 189, 303, 303, 402, 402, 426, 426, 1162, 1162, 137, 137, 65, 65, 1084, 1084, 1180, 1180, 924, 924, 352, 352, 63, 63, 520, 520, 949, 949, 595, 595, 923, 923, 273, 273, 447, 447, 930, 930, 488, 488, 650, 650, 467, 467, 406, 406, 943, 943, 1087, 1087, 60, 60, 893, 893, 1196, 1196, 169, 169, 703, 703, 604, 604, 102, 102, 1075, 1075, 508, 508, 909, 909, 71, 71, 1135, 1135, 1241, 1241, 526, 526, 396, 396, 292, 292, 606, 606, 897, 897, 51, 51, 305, 305, 814, 814, 431, 431, 465, 465, 1254, 1254, 303, 303, 1030, 1030, 1003, 1003, 946, 946, 612, 612, 263, 263, 837, 837, 1074, 1074, 71, 71, 67, 67, 742, 742, 1193, 1193, 615, 615, 1175, 1175, 859, 859, 556, 556, 449, 449, 1198, 1198)
+ANALYSIS_REGIME_HIGH_DAYS = (0, 0, 0, 0, 72, 72, 0, 0, 16, 16, 78, 78, 71, 71, 49, 49, 124, 124, 82, 82, 106, 106, 25, 25, 69, 69, 98, 98, 54, 54, 77, 77, 156, 156, 35, 35, 59, 59, 92, 92, 56, 56, 31, 31, 0, 0, 0, 0, 0, 0, 48, 48, 123, 123, 0, 0, 84, 84, 116, 116, 0, 0, 88, 88, 122, 122, 120, 120, 81, 81, 113, 113, 56, 56, 0, 0, 141, 141, 44, 44, 73, 73, 20, 20, 53, 53, 81, 81, 40, 40, 95, 95, 102, 102, 18, 18, 0, 0, 32, 32, 100, 100, 49, 49, 70, 70, 70, 70, 126, 126, 8, 8, 55, 55, 38, 38, 97, 97, 98, 98, 87, 87, 110, 110, 46, 46, 32, 32, 80, 80, 72, 72, 101, 101, 121, 121, 82, 82, 134, 134, 62, 62, 115, 115, 24, 24, 114, 114, 43, 43, 0, 0, 51, 51, 125, 125, 0, 0, 36, 36, 33, 33, 62, 62, 32, 32, 43, 43, 96, 96, 81, 81, 46, 46, 70, 70, 32, 32, 87, 87, 48, 48, 25, 25, 121, 121, 80, 80, 34, 34, 71, 71, 0, 0, 83, 83, 116, 116, 52, 52)
+ANALYSIS_S123_P50 = (620.4219970703125, 14399.01708984375, 7183.2861328125)
+ANALYSIS_BACKTEST = {
+    10: (78, 4510, {'S1': -0.05067276954650879, 'S2': 0.109363853931427, 'S3': 0.11840426921844482, 'S4': 0.18149268627166748, 'S5': 0.24754029512405396, 'S6': 0.19513338804244995, 'S7': 0.07006371021270752, 'S8': 0.08112126588821411, 'S9': 0.07325571775436401, 'S10': 0.11459755897521973, 'S11': 0.07289773225784302, 'S12': 0.06478720903396606, 'S13': 0.07702207565307617, 'S14': 0.07329553365707397, 'S15': 0.03660005331039429, 'S16': 0.11301803588867188, 'S17': 0.18700963258743286, 'S18': 0.027371764183044434, 'S19': 0.042099714279174805}),
+    20: (0, 0, {}),
+    30: (0, 0, {}),
+}
+ANALYSIS_SANITY = {'transition_matrix_finite': True, 'transition_matrix_row_stochastic': True, 'transition_matrix_nonnegative': True, 'te_seed_collision_free': True, 'tracking_model_params_valid': True, 'funding_vix_activates': False, 'funding_inv_curve_activates': True, 'funding_liquidity_activates': True, 'funding_credit_activates': True, 'all_passed': False}
+ANALYSIS_ROLLING_OOS = {'splits_run': 3, 'funding_mae_mean': 5.2727287988647176e-05, 'tracking_residual_std_mean': 0.0002773111224511903, 'funding_beta_vix_drift': 0.0, 'sufficient_data': True}
+
+
+# ---------------------------------------------------------------------------
+# The full analysis (runner.run), the results-list API and the CLI
+# ---------------------------------------------------------------------------
+
+ANALYSIS_N = 200                   # cfg.NUM_SIMULATIONS, run's default
+ANALYSIS_HORIZONS = (10, 20, 30)
+# The historical backtest's median window CAGR of each strategy, the port
+# on the card (float32 glue, K4) against the JAX package on the CPU
+# (float32, its XLA scan): the same windows and inputs, the strategies'
+# arithmetic in another order.
+BACKTEST_CAGR_ATOL = 1e-4
+# The rolling out-of-sample numbers: the port's fits in float64 on the
+# card against the JAX package's float32 mode.
+OOS_RTOL = 1e-5
+# The Trade_Replay route's exact taxes against the host chain's at the
+# sampled trials. The card's bridge runs in float32 (its kernels move
+# 32-bit words, as the TPU's did), the host chain in float64, so over 30
+# years the bridge's cumulative share coordinates round at the scale of
+# the money that flowed through a trial, not of its tax: the difference is
+# taken relative to the larger of the tax and the trial's gross traded
+# dollars. Its median over the 650 trials is held to tests/test_mc_runner.
+# py:356's rtol 1e-6 (with atol $1), each trial to 1e-2: a float32
+# coordinate of ~10^7 shares is one share apart (ROADMAP section 3). On
+# the CPU (float64 bridge) tests/test_torch_results_list.py holds every
+# trial to rtol 1e-6 of its tax.
+REPLAY_TAX_BOUNDS = dict(median_rtol=1e-6, max_rtol=1e-2, atol=1.0)
+K4_ANALYSIS_PLAIN_DAYS = 504
+
+
+@contextlib.contextmanager
+def wrapped(mod, name, wrapper):
+    """``mod.name`` replaced by ``wrapper(original)`` for the block."""
+    inner = getattr(mod, name)
+    setattr(mod, name, wrapper(inner))
+    try:
+        yield
+    finally:
+        setattr(mod, name, inner)
+
+
+def out_file(name: str) -> Path:
+    """A file for the analysis phase's long output, under build/analysis/
+    in the checkout (listed in .gitignore)."""
+    d = REPO / "build" / "analysis"
+    d.mkdir(parents=True, exist_ok=True)
+    return d / name
+
+
+def summary_finite(summ) -> int:
+    """Raises where a number of the Roth or taxable tables is not finite;
+    a post-tax CAGR is NaN where the post-tax wealth is not positive, as
+    the JAX package reports it. Returns the count of numbers checked."""
+    n = 0
+    for sid, row in summ["roth"].items():
+        for k, v in row.items():
+            if k not in ("id", "name"):
+                assert np.isfinite(v), (sid, k, v)
+                n += 1
+    for sid, row in summ["taxable"].items():
+        for k in ("max_dd", "trades", "win"):
+            assert np.isfinite(row[k]), (sid, k)
+            n += 1
+        for pn, p in row["pcts"].items():
+            for k, v in p.items():
+                if k == "post_cagr" and p["post_wealth"] <= 0:
+                    assert np.isnan(v), (sid, pn, v)
+                    continue
+                assert np.isfinite(v), (sid, pn, k, v)
+                n += 1
+    return n
+
+
+def analysis_run(counters, smi):
+    """(1) runner.run(horizons=[10, 20, 30], seed=0, force_synthetic=True)
+    at 200 trials on the card, the launch counters set to 0 just before
+    and read just after; its output goes to build/analysis/analysis_run.txt,
+    its timing summary to the log. Returns (launches, the results lists
+    and calibrated model by horizon, the backtests by horizon)."""
+    from letf_tpu_torch import config as cfg
+    from letf_tpu_torch import historical, runner
+    from letf_tpu_torch.parallel import mc_runner
+
+    assert cfg.NUM_SIMULATIONS == ANALYSIS_N, cfg.NUM_SIMULATIONS
+    results, backtests = {}, {}
+
+    def keep_results(inner):
+        def call(*a, **kw):
+            out = inner(*a, **kw)
+            results[kw["time_horizon"]] = (kw["regime_model"], out)
+            return out
+        return call
+
+    def keep_backtest(inner):
+        def call(df, horizon, *a, **kw):
+            path = {}
+            out = inner(df, horizon, *a, out_path=path, **kw)
+            backtests[horizon] = (out, path)
+            return out
+        return call
+
+    stages = {}
+    path = out_file("analysis_run.txt")
+    # The date and tax menus take their defaults whatever stdin is, as the
+    # CLI sets it without --interactive.
+    saved_env = os.environ.get("LETF_NON_INTERACTIVE")
+    os.environ["LETF_NON_INTERACTIVE"] = "1"
+    with wrapped(mc_runner, "parallel_monte_carlo_fixed", keep_results), \
+            wrapped(historical, "backtest_strategies_on_history",
+                    keep_backtest), open(path, "w", buffering=1) as f:
+        reset(counters)
+        GENERAL_TRIALS.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(f):
+            summaries = runner.run(horizons=list(ANALYSIS_HORIZONS), seed=0,
+                                   force_synthetic=True, device="cuda",
+                                   stage_seconds=stages)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read(counters)
+    if saved_env is None:
+        del os.environ["LETF_NON_INTERACTIVE"]
+    else:
+        os.environ["LETF_NON_INTERACTIVE"] = saved_env
+    out = path.read_text()
+    print(out[out.index("TIMING SUMMARY") - 81:], flush=True)
+    log(f"analysis (1): runner.run({list(ANALYSIS_HORIZONS)}, seed 0, "
+        f"{ANALYSIS_N} trials, force_synthetic) wall {wall:.3f} s ({smi}); "
+        f"step seconds {json.dumps(stages)}; launches {launches}, general "
+        f"path (K5) at {GENERAL_TRIALS} trials")
+    assert sorted(summaries) == list(ANALYSIS_HORIZONS), summaries.keys()
+    checked = 0
+    for h in ANALYSIS_HORIZONS:
+        assert len(summaries[h]["roth"]) == 6, summaries[h]["roth"].keys()
+        assert len(summaries[h]["taxable"]) == 13
+        checked += summary_finite(summaries[h])
+    n_h = len(ANALYSIS_HORIZONS)
+    # Each horizon: one slab chunk (K1, K2, K3) and one trade-list replay
+    # of all 200 trials (K1, K2', K5); the validation battery: K3 (zero
+    # drift) and K6 (flat decay, 2x and 3x); the backtest: K4 where the
+    # history holds a window.
+    n_bt = sum(1 for h in ANALYSIS_HORIZONS if backtests[h][0])
+    assert launches["joint"] == 2 * n_h, launches
+    assert launches["window"] == n_h, launches
+    assert launches["window_tiles"] == n_h, launches
+    assert launches["compose_strategies"] == n_h + 1, launches
+    assert launches["compose"] == n_h, launches
+    assert launches["gbm"] == 2, launches
+    assert launches["strategies"] == n_bt >= 1, launches
+    assert GENERAL_TRIALS == [ANALYSIS_N] * n_h, GENERAL_TRIALS
+    log(f"analysis (1): {checked} summary numbers finite over "
+        f"{n_h} horizons")
+    return launches, results, backtests
+
+
+def analysis_results_lists(results):
+    """(1) Each horizon's results list against run_monte_carlo's arrays on
+    the same model and seed: Final_Wealth, Num_Trades and Max_DD equal,
+    every taxable trial with a trade list (200 <= trade_list_limit)."""
+    from letf_tpu_torch import config as cfg
+    from letf_tpu_torch.parallel import mc_runner
+
+    for h, (model, mc) in sorted(results.items()):
+        a = mc_runner.run_monte_carlo(model, h, num_simulations=ANALYSIS_N,
+                                      seed=0, device="cuda", progress=False)
+        for sid, rows in mc.items():
+            k = cfg.STRATEGY_INDEX[sid]
+            assert len(rows) == ANALYSIS_N, (h, sid)
+            for key, arr in (("Final_Wealth", a.final_wealth),
+                             ("Num_Trades", a.num_trades),
+                             ("Max_DD", a.max_dd)):
+                got = np.array([r[key] for r in rows], np.float64)
+                assert np.array_equal(got, arr[:, k].astype(np.float64)), (
+                    h, sid, key)
+            if sid in cfg.TAXABLE_IDS:
+                assert all(isinstance(r.get("Trade_List"), list)
+                           for r in rows), (h, sid)
+    log(f"analysis (1): results lists at {sorted(results)} y equal "
+        f"run_monte_carlo's arrays (Final_Wealth, Num_Trades, Max_DD) "
+        f"bitwise")
+
+
+def analysis_validation():
+    """(1) The battery's JSON in the port's cache: the zero-drift
+    invariant passes; the structural checks equal the JAX package's on the
+    committed fits (ANALYSIS_SANITY: funding_vix_activates is false there
+    too, the funding fit's beta_vix being 0 on this history, so all_passed
+    is false in both); the rolling OOS ran its 3 splits, within OOS_RTOL
+    of the JAX package's numbers."""
+    from letf_tpu_torch import config as cfg
+
+    res = json.loads(Path(cfg.VALIDATION_RESULTS).read_text())
+    assert res["zero_drift_test"]["test_passed"], res["zero_drift_test"]
+    assert res["flat_market_test"]["all_passed"], res["flat_market_test"]
+    sanity = res["institutional_sanity"]
+    assert sanity == ANALYSIS_SANITY, (sanity, ANALYSIS_SANITY)
+    assert all(v for k, v in sanity.items()
+               if k not in ("all_passed", "funding_vix_activates")), sanity
+    oos = res["rolling_oos"]
+    assert oos["sufficient_data"] and oos["splits_run"] == 3, oos
+    rel = {}
+    for k, ref in ANALYSIS_ROLLING_OOS.items():
+        if isinstance(ref, float):
+            rel[k] = abs(oos[k] - ref) / max(abs(ref), 1e-300)
+            assert rel[k] <= OOS_RTOL, (k, oos[k], ref)
+        else:
+            assert oos[k] == ref, (k, oos[k], ref)
+    log(f"analysis (1): zero-drift {res['zero_drift_test']['actual_drag']:.6f} "
+        f"(expected {res['zero_drift_test']['expected_drag']:.6f}); "
+        f"institutional sanity equals the JAX package's check for check "
+        f"(all_passed {sanity['all_passed']}: funding_vix_activates "
+        f"{sanity['funding_vix_activates']} in both); rolling OOS "
+        f"{json.dumps(oos)}, relative difference to the JAX package's "
+        f"{json.dumps(rel)} (bound {OOS_RTOL})")
+
+
+def analysis_backtests(backtests):
+    """(1) K4 on each horizon's backtest windows against its plain version
+    on the card, within check_parity's bounds, at the windows' count and
+    their first K4_ANALYSIS_PLAIN_DAYS days (the plain loop is host-bound,
+    ~10 ms a day); the kernel bitwise the backtest's own run over all the
+    days. (2) Window counts equal the JAX package's, each strategy's
+    median window CAGR within BACKTEST_CAGR_ATOL of it; the regime-1
+    window days beside its. Returns K4's record at the widest horizon."""
+    from letf_tpu_torch.ops import compose_strategies as k3
+    from letf_tpu_torch.ops import strategies as k4
+    from letf_tpu_torch.strategies.signals import compute_signals
+
+    rec = None
+    worst = (0.0, None)
+    for h in ANALYSIS_HORIZONS:
+        bt, path = backtests[h]
+        n_ref, regime_ref, med_ref = ANALYSIS_BACKTEST[h]
+        wins = len(bt["S1"]) if bt else 0
+        assert wins == n_ref, (h, wins, n_ref)
+        if not wins:
+            log(f"analysis (2): backtest {h}y: no window (as the JAX "
+                "package)")
+            continue
+        p = path["path"]
+        regime_days = int(p.regime.sum())
+        for sid, ref in med_ref.items():
+            d = abs(float(np.median(bt[sid])) - ref)
+            if d > worst[0]:
+                worst = (d, f"{h}y {sid}")
+            assert d <= BACKTEST_CAGR_ATOL, (h, sid, d)
+        chans = k4.channels_from(p, compute_signals(p))
+        S, W = chans[0].shape
+        ms, got = spread(lambda: k4.strategies_run(chans), 3)
+        assert np.array_equal(got[0].cpu().numpy().astype(np.float64),
+                              path["final_wealth"]), h
+        cs = [c[:K4_ANALYSIS_PLAIN_DAYS] for c in chans]
+        got = k4.strategies_run(cs)
+        plain_ms, ref = timed(lambda: k4.strategies_plain(cs), 1, warm=False)
+        names = ("final_wealth", "num_trades", "max_dd")
+        st = k3.check_parity(dict(zip(names, got)), dict(zip(names, ref)),
+                             exact=())
+        log(f"analysis (1-2): backtest {h}y: {W} windows x {S} days equal "
+            f"the JAX package's count; regime-1 window days {regime_days} "
+            f"(JAX {regime_ref}, difference {regime_days - regime_ref}); K4 "
+            f"vs plain at W={W} over the first {cs[0].shape[0]} days: {st}; "
+            f"kernel {fmt_spread(ms)} over 3 runs at S={S}, plain "
+            f"{plain_ms:.3f} ms at S={cs[0].shape[0]}")
+        rec = dict(windows=W, days=S, max_abs_err=st["max_abs_err"],
+                   ms_spread=ms, plain_ms=plain_ms,
+                   plain_days=cs[0].shape[0])
+    log(f"analysis (2): backtest median window CAGR largest difference to "
+        f"the JAX package's {worst[0]:.3e} ({worst[1]}; bound "
+        f"{BACKTEST_CAGR_ATOL})")
+    return rec
+
+
+def analysis_ragged(model):
+    """K1 and K3 against their plain versions on the card at the run's 200
+    trials (6 x 32 + 8: a partial last block) on the run's calibrated
+    model, over a 252-day window and a 126-day buffer (the plain versions
+    are host-bound day loops). Returns {"joint": rec, "compose_strategies":
+    rec}."""
+    from letf_tpu_torch.models.params import as_sim_model, from_numpy
+    from letf_tpu_torch.ops import compose_strategies as k3
+    from letf_tpu_torch.ops import joint
+
+    model_t = from_numpy(as_sim_model(model), "cuda", torch.float32)
+    sim, buf = QUICK["sim"], QUICK["buf"]
+    B = ANALYSIS_N
+    regime, ids, signs, sw, offs = chain_inputs(model_t, B, sim, buf)
+    ja = joint_args(model_t, regime, ids, signs, sw)
+    k1_ms, xk = spread(lambda: joint.joint_generate(*ja), 3)
+    plain_ms, xp = timed(lambda: joint.joint_plain(*ja), 1, warm=False)
+    errs = [float((a - b).abs().max()) for a, b in zip(xk, xp)]
+    for c in (0, 1, 2, 4):
+        torch.testing.assert_close(xk[c], xp[c], rtol=1e-4, atol=1e-6)
+    torch.testing.assert_close(xk[3], xp[3], rtol=0, atol=1e-3)
+    out = {"joint": dict(B=B, T=sim + buf, max_abs_err=max(errs),
+                         ms_spread=k1_ms, plain_ms=plain_ms)}
+    chans = windowed(model_t, list(xk) + [regime], offs, sim)
+    ka = k3_args(model_t, ids, sw, chans)
+    k3_ms, got = spread(lambda: k3.compose_strategies(*ka), 3)
+    plain3_ms, ref = timed(lambda: k3.compose_strategies_plain(*ka), 1,
+                           warm=False)
+    st = k3.check_parity(dict(zip(k3.OUTPUTS, got)),
+                         dict(zip(k3.OUTPUTS, ref)),
+                         exact=("path_finite", "vix_min", "vix_max",
+                                "regime_high_days"))
+    out["compose_strategies"] = dict(B=B, S=sim, max_abs_err=st["max_abs_err"],
+                                     ms_spread=k3_ms, plain_ms=plain3_ms)
+    log(f"analysis (1): at B={B} (a partial last 32-trial block) on the "
+        f"calibrated model: K1 vs plain T={sim + buf} max abs err x0..x2 "
+        f"{max(errs[:3]):.3e}, vix {errs[3]:.3e}, irx {errs[4]:.3e}, kernel "
+        f"{fmt_spread(k1_ms)}, plain {plain_ms:.3f} ms; K3 vs plain S={sim}: "
+        f"{st}, kernel {fmt_spread(k3_ms)}, plain {plain3_ms:.3f} ms")
+    return out
+
+
+def analysis_jax_reference():
+    """(2) The results list's first 200 trials x 10 y on the committed fits
+    against the JAX package's (ANALYSIS_*): start offsets and regime-1
+    days exact, S1-S3 median final wealth within rtol 1e-5."""
+    from letf_tpu_torch.parallel import mc_runner
+
+    model, _ = committed_fits()
+    with contextlib.redirect_stdout(io.StringIO()):
+        mc = mc_runner.parallel_monte_carlo_fixed(
+            ["S1", "S2", "S3"], 10, model, num_simulations=ANALYSIS_N,
+            seed=0, device="cuda")
+    meta = [r["Metadata"] for r in mc["S1"]]
+    offs = tuple(m["start_offset"] for m in meta)
+    high = tuple(m["regime_counts"][1] for m in meta)
+    assert offs == ANALYSIS_START_OFFSETS, "start offsets differ"
+    assert high == ANALYSIS_REGIME_HIGH_DAYS, "regime days differ"
+    p50 = [float(np.median([r["Final_Wealth"] for r in mc[s]]))
+           for s in ("S1", "S2", "S3")]
+    rel = [abs(a - b) / abs(b) for a, b in zip(p50, ANALYSIS_S123_P50)]
+    log(f"analysis (2): the results list's {ANALYSIS_N} trials x 10y on the "
+        f"committed fits vs the JAX package: start offsets and regime-1 "
+        f"days equal; S1-S3 median wealth {p50}, relative differences "
+        f"{[f'{r:.3e}' for r in rel]} (bound 1e-5)")
+    assert max(rel) < 1e-5, rel
+
+
+def analysis_replay(counters, smi, n=4096, years=30):
+    """(3) The Trade_Replay route at scale: parallel_monte_carlo_fixed on
+    the committed fits at 4,096 trials x 30 y (above trade_list_limit, so
+    every taxable result carries a Trade_Replay descriptor), then
+    create_summary_statistics sampled (50 replayed trials a strategy,
+    through the host tax chain) and with exact_tax_all_trials=True (one
+    emission of the 4,096 trials, the bridge with K7 and K8 for each
+    strategy), the launch counters set to 0 just before and read just
+    after. At the sampled trials the exact taxes agree with the host
+    chain's within REPLAY_TAX_BOUNDS; every sampled trial got its trade
+    list, and
+    no trial that traded is priced at zero tax by the host chain for lack
+    of trades."""
+    from letf_tpu_torch import config as cfg
+    from letf_tpu_torch import reporting
+    from letf_tpu_torch.parallel import mc_runner
+
+    model, _ = committed_fits()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        mc = mc_runner.parallel_monte_carlo_fixed(
+            list(cfg.STRATEGIES), years, model, num_simulations=n, seed=0,
+            device="cuda")
+    t_mc = time.perf_counter() - t0
+    for sid in cfg.TAXABLE_IDS:
+        assert all("Trade_Replay" in r and "Trade_List" not in r
+                   for r in mc[sid]), sid
+    host, taxes = {}, {}
+
+    def keep_host(inner):
+        def call(**kw):
+            out = inner(**kw)
+            host[id(kw["trades"])] = out["total_tax"]
+            return out
+        return call
+
+    def keep_taxes(inner):
+        def call(results, time_horizon, tax_config, sid, exact_all=False,
+                 **kw):
+            out = inner(results, time_horizon, tax_config, sid, exact_all,
+                        **kw)
+            taxes[sid, exact_all] = out
+            return out
+        return call
+
+    text = io.StringIO()
+    st_s, st_x = {}, {}
+    with wrapped(reporting, "process_trades_with_wired_engine", keep_host), \
+            wrapped(reporting, "_tax_all_trials", keep_taxes):
+        reset(counters)
+        GENERAL_TRIALS.clear()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(text):
+            reporting.create_summary_statistics(mc, years,
+                                                stage_seconds=st_s)
+        t1 = time.perf_counter()
+        with contextlib.redirect_stdout(text):
+            summ_x = reporting.create_summary_statistics(
+                mc, years, exact_tax_all_trials=True, stage_seconds=st_x)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        launches = read(counters)
+    out_file("analysis_replay.txt").write_text(text.getvalue())
+    summary_finite(summ_x)
+    zero, traded, stats, bad, rel = 0, 0, {}, {}, []
+    for sid in cfg.TAXABLE_IDS:
+        rows = mc[sid]
+        w = reporting._wealth(rows)
+        sample = np.argsort(w)[np.linspace(0, n - 1, reporting.MAX_TAX_SIMS,
+                                           dtype=int)]
+        h_tax, gross = [], []
+        for i in sample:
+            trades = rows[i]["Trade_List"]
+            assert isinstance(trades, list), (sid, i)
+            h_tax.append(host[id(trades)] if trades else 0.0)
+            gross.append(sum(t["dollar_amount"] for t in trades))
+            traded += bool(trades)
+        h_tax, gross = (np.asarray(v, np.float64) for v in (h_tax, gross))
+        x_tax = taxes[sid, True][sample]
+        diff = np.abs(x_tax - h_tax)
+        scale = np.maximum(np.abs(h_tax), gross)
+        rel.append(np.maximum(diff - REPLAY_TAX_BOUNDS["atol"], 0.0)
+                   / np.maximum(scale, 1.0))
+        bad[sid] = int((rel[-1] > REPLAY_TAX_BOUNDS["max_rtol"]).sum())
+        stats[sid] = dict(
+            max_abs=float(diff.max()),
+            max_rel_tax=float((diff / np.maximum(np.abs(h_tax), 1.0)).max()),
+            max_rel_scale=float(rel[-1].max()),
+            median_rel_scale=float(np.median(rel[-1])),
+            median_tax=float(np.median(h_tax)),
+            median_gross=float(np.median(gross)))
+        zero += int(((x_tax == 0) & (h_tax != 0)).sum())
+    log(f"analysis (3): parallel_monte_carlo_fixed {n} x {years}y in "
+        f"{t_mc:.3f} s; create_summary_statistics sampled {t1 - t0:.3f} s "
+        f"({json.dumps(st_s)}), exact_all {t2 - t1:.3f} s "
+        f"({json.dumps(st_x)}) ({smi}); launches {launches}, general path "
+        f"(K5) at {GENERAL_TRIALS} trials; at the {13 * reporting.MAX_TAX_SIMS}"
+        f" sampled trials ({traded} with trades) exact-all (card, float32 "
+        f"bridge) vs the host chain (float64), relative to max(tax, gross "
+        f"traded): median {float(np.median(np.concatenate(rel))):.3e}, "
+        f"{json.dumps(stats)}; past {REPLAY_TAX_BOUNDS['max_rtol']}: {bad};"
+        f" priced zero by one and not the other {zero}")
+    assert zero == 0, zero
+    assert np.median(np.concatenate(rel)) <= REPLAY_TAX_BOUNDS["median_rtol"]
+    assert not any(bad.values()), bad
+    assert launches["sort_bridge"] >= 13 and launches["wash"] >= 13, launches
+    assert launches["compose"] == 14, launches
+    return launches
+
+
+def analysis_cli(smi):
+    """(4) python -m letf_tpu_torch.cli --synthetic-data --sims 64
+    --horizons 10, and --quick, as two subprocesses started together, each
+    in a temporary directory of its own (its cache there): both exit 0 and
+    print their tables. Their output goes to build/analysis/cli_*.txt."""
+    runs = {"default": (["--synthetic-data", "--sims", "64", "--horizons",
+                         "10"], ("TIMING SUMMARY", "TAXABLE BROKERAGE",
+                                 "ROTH IRA COMPATIBLE - 10-YEAR",
+                                 "ANALYSIS COMPLETE")),
+            "quick": (["--quick"], ("ROTH IRA COMPATIBLE - 10-YEAR",
+                                    "QUICK TEST COMPLETE"))}
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    dirs, procs = {}, {}
+    t0 = time.perf_counter()
+    for name, (argv, _) in runs.items():
+        dirs[name] = Path(tempfile.mkdtemp(prefix=f"letf_cli_{name}_"))
+        procs[name] = subprocess.Popen(
+            [sys.executable, "-m", "letf_tpu_torch.cli", *argv],
+            cwd=dirs[name], env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)
+    secs = {}
+    for name, (argv, want) in runs.items():
+        out, err = procs[name].communicate(timeout=600)
+        secs[name] = time.perf_counter() - t0
+        shutil.rmtree(dirs[name], ignore_errors=True)
+        out_file(f"cli_{name}.txt").write_text(out + "\n" + err)
+        assert procs[name].returncode == 0, (name, err[-3000:])
+        for w in want:
+            assert w in out, (name, w)
+    log(f"analysis (4): cli {runs['default'][0]} and {runs['quick'][0]} "
+        f"exit 0 with their tables, in {json.dumps(secs)} s from the start "
+        f"of both ({smi})")
+
+
+def phase_analysis(counters, smi):
+    """The reference's complete analysis on the card, in a temporary cache
+    of the port's: (1) runner.run at 200 trials x 10/20/30 y and its gates,
+    (2) against the JAX package's numbers (ANALYSIS_*), (3) the
+    Trade_Replay route at 4,096 x 30 y, (4) the CLI's default and --quick
+    branches. Returns (the run's launches, the replay's launches, the
+    kernel records at the run's shapes)."""
+    t0 = time.perf_counter()
+    with port_cache():
+        launches, results, backtests = analysis_run(counters, smi)
+        analysis_results_lists(results)
+        analysis_validation()
+        k4_rec = analysis_backtests(backtests)
+        ragged = analysis_ragged(results[ANALYSIS_HORIZONS[0]][0])
+        del results, backtests
+        analysis_jax_reference()
+        replay = analysis_replay(counters, smi)
+        torch.cuda.empty_cache()
+        analysis_cli(smi)
+    log(f"analysis phase: {time.perf_counter() - t0:.1f} s")
+    return launches, replay, dict(ragged, strategies=k4_rec)
+
+
 def phase_validation(counters):
     """The two invariants of the validation battery on the card: the
     zero-drift drag through K3 (10,000 paths, within 1.5%), the flat-market
@@ -2567,6 +3123,12 @@ def main():
     phase_jax_reference(model)
     launches["calibrated_report"] = phase_calibrated(ctrs, smi)
     torch.cuda.empty_cache()
+    (launches["analysis"], launches["analysis_replay"],
+     analysis_rec) = phase_analysis(ctrs, smi)
+    for k, r in analysis_rec.items():
+        if r is not None:
+            rec[k]["analysis"] = r
+    torch.cuda.empty_cache()
     launches["headline"] = phase_headline(ctrs)
     phase_validation(ctrs)
     phase_profile(model)
@@ -2587,7 +3149,7 @@ def main():
                                  "shapes",
                                  "paired_ms_spread", "equal_ms_spread",
                                  "quarter_ms_spread", "report_ms_spread",
-                                 "digest_match")
+                                 "digest_match", "analysis")
                if x in r}))
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(info))

@@ -22,6 +22,13 @@ day frame), the calibration of every model (``calibration.py``, its fits
 in float64 on the device, ``ops/fitting.py``), the golden tax gate
 (``tax/engine.py``) and one report per horizon.
 
+The reference's complete analysis runs too (``runner.run``, the CLI's
+default branch, ``--quick``): the validation battery, per horizon the
+reference-format results list (``parallel.mc_runner.parallel_monte_carlo_fixed``),
+the Roth and taxable tables through the host tax chain
+(``reporting.create_summary_statistics``, ``integration.py``, ``tax/``)
+and the comparison with history (``historical.py``).
+
 The package imports torch, numpy and scipy, and never jax, the JAX
 package or pandas: it keeps its own copies of the configuration, the
 model tree, the tax statute and the income path.

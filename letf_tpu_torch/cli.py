@@ -2,15 +2,17 @@
 
 The reference's flags and defaults (``letf_tpu/cli.py``) plus ``--device``
 (default ``cuda``; ``cpu`` runs the plain PyTorch versions), which stands
-in for the JAX package's platform choice. ``--report`` runs
-``runner.run_report``; the full analysis (the default branch) and
-``--quick`` are ROADMAP item 16 and raise; ``--interactive`` (the
-reference's menus, which only they use) is accepted and changes nothing.
+in for the JAX package's platform choice. The default branch runs the full
+analysis (``runner.run``), ``--report`` the production report
+(``runner.run_report``), ``--quick`` the smoke test (``quick.main``: 10
+sims x 10y over S1-S3). Without ``--interactive`` the date and tax menus
+take their defaults (``LETF_NON_INTERACTIVE=1``), as in the reference.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -48,13 +50,16 @@ def build_parser() -> argparse.ArgumentParser:
                         "exactly; minutes at 1M), none (pre-tax only)")
     p.add_argument("--device", type=str, default="cuda",
                    choices=["cuda", "cpu"],
-                   help="where the fits and the report run (cuda: the "
-                        "hand-written kernels; cpu: their plain versions)")
+                   help="where the fits, the Monte Carlo and the reports "
+                        "run (cuda: the hand-written kernels; cpu: their "
+                        "plain versions)")
     return p
 
 
 def main(argv=None) -> None:
     args = build_parser().parse_args(argv)
+    if not args.interactive:
+        os.environ["LETF_NON_INTERACTIVE"] = "1"
 
     from letf_tpu_torch import config as cfg
 
@@ -64,9 +69,10 @@ def main(argv=None) -> None:
         cfg.ANALYSIS_START_DATE = args.start_date
 
     if args.quick:
-        raise NotImplementedError(
-            "--quick (the root quick_test.py flow) is not ported yet: "
-            "ROADMAP item 16; use --report")
+        cfg.NUM_SIMULATIONS = args.sims or 10
+        from letf_tpu_torch import quick
+        quick.main(device=args.device, force_synthetic=args.synthetic_data)
+        return
 
     if args.report:
         from letf_tpu_torch.runner import run_report
@@ -82,7 +88,7 @@ def main(argv=None) -> None:
     run(horizons=args.horizons, seed=args.seed,
         tax_overrides={"state": args.state, "ordinary_income": args.income,
                        "filing_status": args.filing},
-        force_synthetic=args.synthetic_data)
+        force_synthetic=args.synthetic_data, device=args.device)
 
 
 if __name__ == "__main__":

@@ -3,10 +3,15 @@ chunk, trade emission on the general path, and the percentile report.
 
 Ports of ``letf_tpu/parallel/mc_runner.py``: ``_trial_layout`` (``:385``),
 ``run_monte_carlo`` (``:396``), ``_mc_chunk_body`` (``:63-120``: the slab
-chunk, or ``general_chunk``), ``emit_trade_lists`` (``:686``) and
+chunk, or ``general_chunk``), ``emit_trade_lists`` (``:686``),
 ``monte_carlo_report`` (``:744``) with ``tax_mode="sampled"`` (the default:
 post-tax tables from reporting.sampled_post_tax_tables), ``"exact_all"``
-(reporting.exact_post_tax_all_trials: every trial taxed) or ``"none"``.
+(reporting.exact_post_tax_all_trials: every trial taxed) or ``"none"``,
+and the reference-format results-list API: ``build_anchor_conditions``
+(``:367``), ``emit_regime_paths`` (``:948``) and
+``parallel_monte_carlo_fixed`` (``:987``: per-trial result dicts, with
+``Trade_List`` up to ``trade_list_limit`` trials and ``Trade_Replay``
+descriptors above it).
 
 Engine modes: ``institutional_v1`` runs the slab chunk (kernels K1, K2, K3)
 and, for emission, the batched general path (K1, K2', K5). ``parametric``,
@@ -39,6 +44,8 @@ from letf_tpu_torch.ops import rng
 from letf_tpu_torch.ops.path_batched import (
     generate_paths_batched,
     plan_max_spells,
+    simulate_regime_paths_spell,
+    start_conditions,
 )
 from letf_tpu_torch.ops.path_engine import generate_paths_batch
 from letf_tpu_torch.ops.slab_chunk import slab_chunk_summaries
@@ -67,6 +74,24 @@ class MCArrays:
     sim_days: int
     trial_ids: np.ndarray       # [N]
     antithetic: np.ndarray      # [N]
+
+
+def build_anchor_conditions(df, min_history_years: float | None = None):
+    """Historical anchor pool for the 'historical_anchor' start method
+    (random_start.py:60-129): valid anchor days exclude the first
+    min_history years and the last year; regime from the anchor day's VIX
+    (< 25 -> low vol), initial VIX from the anchor row. ``df``: the
+    history (``utils/frame.Frame``). Returns (int32 regimes, float32 VIX)
+    numpy arrays, or None when the history is too short."""
+    if min_history_years is None:
+        min_history_years = cfg.MIN_HISTORY_FOR_ANCHOR
+    min_days = int(min_history_years * 252)
+    n = len(df)
+    if n - 252 <= min_days:
+        return None
+    vix = np.asarray(df["VIX"], float)[min_days:n - 252]
+    regimes = (vix >= 25.0).astype(np.int32)
+    return regimes, vix.astype(np.float32)
 
 
 def _trial_layout(num_simulations: int, use_antithetic: bool):
@@ -269,6 +294,18 @@ def emit_trade_lists(model: SimModel | Dict | None, time_horizon: float,
     lists: {trial_index: {sid: [trade dicts]}}. The counter draws
     regenerate the identical paths, so the same run arguments give the
     trades behind the recorded final wealth."""
+    return _trade_lists(model, time_horizon, trial_indices, seed,
+                        use_antithetic, random_start_method, num_simulations,
+                        apply_costs, engine_mode, bootstrap_pools, cashflows,
+                        anchors, device, cfg.TAXABLE_IDS)
+
+
+def _trade_lists(model, time_horizon, trial_indices, seed, use_antithetic,
+                 random_start_method, num_simulations, apply_costs,
+                 engine_mode, bootstrap_pools, cashflows, anchors, device,
+                 strategy_ids) -> Dict[int, Dict[str, List[Dict]]]:
+    """``emit_trade_lists`` for the taxable ``strategy_ids`` alone (one
+    replay; the trade lists of the other columns are not built)."""
     mode = _engine_mode(engine_mode, bootstrap_pools)
     trial_indices = list(trial_indices)
     run = _Run(model, time_horizon, num_simulations, seed, None,
@@ -277,9 +314,10 @@ def emit_trade_lists(model: SimModel | Dict | None, time_horizon: float,
     ids, anti = _trial_layout(run.num_simulations, run.use_antithetic)
     _, emission = general_chunk(run, ids[trial_indices], anti[trial_indices],
                                 apply_costs=apply_costs)
-    tj = [e.cpu().numpy() for e in emission]
-    return {trial: {sid: trades_from_emission(*tj, row, col)
-                    for col, sid in enumerate(cfg.TAXABLE_IDS)}
+    cols = {sid: cfg.TAXABLE_IDS.index(sid) for sid in strategy_ids}
+    tj = [e[:, :, list(cols.values())].cpu().numpy() for e in emission]
+    return {trial: {sid: trades_from_emission(*tj, row, c)
+                    for c, sid in enumerate(cols)}
             for row, trial in enumerate(trial_indices)}
 
 
@@ -418,3 +456,164 @@ def monte_carlo_report(model: SimModel | Dict | None, time_horizon: float,
             k: (tax_config or reporting.DEFAULT_TAX_CONFIG).get(k)
             for k in ("state", "ordinary_income", "filing_status")}
     return report
+
+
+def emit_regime_paths(model: SimModel | Dict, time_horizon: int,
+                      trial_indices: Sequence[int], seed: int = 0,
+                      num_simulations: Optional[int] = None,
+                      use_antithetic: Optional[bool] = None,
+                      random_start_method: Optional[str] = None,
+                      anchors=None, *, device="cuda") -> np.ndarray:
+    """Per-day regime paths [len(trials), sim_days] (int8) of selected
+    trial rows by deterministic replay (the reference attaches
+    Regime_Path to every worker result, simulation/engine.py:592-604): the
+    start conditions and the regime spells of ``windowed_chain`` (with the
+    default spell bound, as the JAX package's replay), cut at each
+    trial's start offset."""
+    run = _Run(model, time_horizon, num_simulations, seed, None,
+               use_antithetic, random_start_method, anchors=anchors,
+               device=device)
+    ids, _ = _trial_layout(run.num_simulations, run.use_antithetic)
+    ids_t = torch.as_tensor(ids[list(trial_indices)], device=run.device)
+    sc = start_conditions(run.model, run.key, ids_t, run.buffer_days,
+                          run.random_start_method, anchors,
+                          run.model.regime.p_stay.dtype)
+    reg = simulate_regime_paths_spell(
+        run.model, rng.stream(rng.trial_key(run.key, ids_t), rng.REGIME),
+        sc.start_regime, run.sim_days + run.buffer_days)
+    reg = reg.t().cpu().numpy()                                  # [B, T]
+    off = sc.start_offset.cpu().numpy().astype(np.int64)
+    idx = off[:, None] + np.arange(run.sim_days)[None, :]
+    return np.take_along_axis(reg, idx, axis=1).astype(np.int8)
+
+
+def parallel_monte_carlo_fixed(strategy_ids, time_horizon, regime_model,
+                               correlation_matrices=None, historical_df=None,
+                               num_simulations: Optional[int] = None,
+                               seed: int = 0,
+                               trade_list_limit: int = 1024,
+                               include_regime_paths: bool = False, *,
+                               device="cuda") -> Dict[str, List[Dict]]:
+    """Reference-compatible entry point: {sid: [per-trial result dicts]}
+    on ``device``.
+
+    The worker-result schema of simulate_single_path_fixed
+    (engine.py:592-604): Final_Wealth, Num_Trades, Trades_Per_Year,
+    Max_DD, Metadata, and for the taxable strategies a Trade_List (up to
+    ``trade_list_limit`` trials, from ``emit_trade_lists``) or, above it,
+    a Trade_Replay descriptor {"trial", "ctx"} from which reporting
+    replays exactly the trades it needs. ``correlation_matrices`` is
+    accepted as the reference's and unused (the model carries them)."""
+    if num_simulations is None:
+        num_simulations = cfg.NUM_SIMULATIONS
+    dev = resolve_device(device)
+
+    print(f"\n{'=' * 80}")
+    print(f"MONTE CARLO: {num_simulations:,} sims x {time_horizon}Y "
+          f"(1 device: {dev}, chunked trial batches)")
+    print(f"{'=' * 80}")
+    if cfg.USE_ANTITHETIC_VARIATES:
+        print("  Antithetic variates ENABLED (pairs (0,1), (2,3), ...)")
+    if cfg.USE_RANDOM_START:
+        print(f"  Randomized start: {cfg.RANDOM_START_METHOD} "
+              f"(buffer {cfg.RANDOM_START_BUFFER_YEARS}y)")
+    print(f"  Engine mode: {cfg.SIM_ENGINE_MODE}")
+
+    model = as_sim_model(regime_model)
+
+    if (cfg.SIM_ENGINE_MODE == "legacy_hybrid" and cfg.USE_BLOCK_BOOTSTRAP
+            and historical_df is not None):
+        raise NotImplementedError(
+            "legacy_hybrid with bootstrap pools is the block bootstrap, not "
+            "ported yet: ROADMAP section 1 item 15")
+    bootstrap_pools = None
+
+    anchors = None
+    if (cfg.USE_RANDOM_START
+            and cfg.RANDOM_START_METHOD == "historical_anchor"
+            and historical_df is not None):
+        anchors = build_anchor_conditions(historical_df)
+
+    arrays = run_monte_carlo(model, time_horizon,
+                             num_simulations=num_simulations, seed=seed,
+                             bootstrap_pools=bootstrap_pools,
+                             anchors=anchors, device=dev)
+
+    regime_paths = None
+    if include_regime_paths:
+        regime_paths = emit_regime_paths(
+            model, time_horizon, range(num_simulations), seed=seed,
+            num_simulations=num_simulations, anchors=anchors, device=dev)
+
+    want_trades = (num_simulations <= trade_list_limit
+                   and any(s in cfg.TAXABLE_IDS for s in strategy_ids))
+    trade_lists: Dict[int, Dict[str, List[Dict]]] = {}
+    if want_trades:
+        trade_lists = emit_trade_lists(
+            model, time_horizon, range(num_simulations), seed=seed,
+            num_simulations=num_simulations,
+            engine_mode=cfg.SIM_ENGINE_MODE, bootstrap_pools=bootstrap_pools,
+            anchors=anchors, device=dev)
+    # Above trade_list_limit the taxable results carry a Trade_Replay
+    # descriptor: trials replay deterministically from (seed, trial id),
+    # so reporting re-materialises exactly the trades it needs. A result
+    # with neither is a hard error there, never zero tax.
+    replay_ctx = {
+        "model": model, "seed": seed, "num_simulations": num_simulations,
+        "use_antithetic": cfg.USE_ANTITHETIC_VARIATES,
+        "engine_mode": cfg.SIM_ENGINE_MODE,
+        "random_start_method": (cfg.RANDOM_START_METHOD
+                                if cfg.USE_RANDOM_START else "none"),
+        "buffer_days": (int(cfg.RANDOM_START_BUFFER_YEARS * cfg.TRADING_DAYS)
+                        if cfg.USE_RANDOM_START
+                        and cfg.RANDOM_START_METHOD == "offset" else 0),
+        "bootstrap_pools": bootstrap_pools, "anchors": anchors,
+        "device": dev,
+    }
+
+    results: Dict[str, List[Dict]] = {sid: [] for sid in strategy_ids}
+    years = float(time_horizon)
+    cols = {sid: cfg.STRATEGY_INDEX[sid] for sid in strategy_ids}
+    fw, nt, mdd = (a.tolist() for a in (arrays.final_wealth,
+                                         arrays.num_trades, arrays.max_dd))
+    for i in range(num_simulations):
+        high = int(arrays.regime_high_days[i])
+        meta = {
+            "model_version": cfg.SIM_ENGINE_MODE,
+            "sim_id": int(arrays.trial_ids[i]),
+            "antithetic": bool(arrays.antithetic[i]),
+            "regime_counts": {0: arrays.sim_days - high, 1: high},
+            "start_method": (cfg.RANDOM_START_METHOD if cfg.USE_RANDOM_START
+                             else "default"),
+            "start_offset": int(arrays.start_offset[i]),
+            "layer_checks": {
+                "is_valid": bool(arrays.valid[i]),
+                "repaired_after_validation": bool(arrays.repaired[i]),
+                "returns_finite": bool(arrays.path_finite[i]),
+                "vix_in_range": bool(arrays.vix_ok[i]),
+            },
+            "stress_summary": {
+                "liq_mean": float(arrays.liq_mean[i]),
+                "credit_mean": float(arrays.credit_mean[i]),
+                "jump_days": int(arrays.jump_days[i]),
+            },
+        }
+        for sid in strategy_ids:
+            k = cols[sid]
+            result = {
+                "Final_Wealth": float(fw[i][k]),
+                "Num_Trades": int(nt[i][k]),
+                "Trades_Per_Year": float(nt[i][k]) / years,
+                "Max_DD": float(mdd[i][k]),
+                "Metadata": meta,
+            }
+            if include_regime_paths:
+                result["Regime_High_Days"] = high
+                result["Regime_Path"] = regime_paths[i]
+            if sid in cfg.TAXABLE_IDS:
+                if i in trade_lists:
+                    result["Trade_List"] = trade_lists[i][sid]
+                else:
+                    result["Trade_Replay"] = {"trial": i, "ctx": replay_ctx}
+            results[sid].append(result)
+    return results

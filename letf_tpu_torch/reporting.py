@@ -1,4 +1,22 @@
-"""The report's post-tax tables: sampled, and exact over every trial.
+"""Reporting: the results-list summary, and the report's post-tax tables.
+
+Port of ``letf_tpu/reporting.py``'s results-list surface:
+``get_tax_config_interactive`` (the menu, and the defaults when stdin is
+not a terminal or ``LETF_NON_INTERACTIVE`` is set), ``estimate_tax_simple``,
+``explain_percentile``, and ``create_summary_statistics`` (the Roth and
+taxable tables of per-trial result dicts) with its ``_tax_all_trials``:
+the reference's amortization (exact tax of <= ``MAX_TAX_SIMS`` trials
+sampled evenly across sorted wealth through the host tax chain,
+``integration.process_trades_with_wired_engine``, and ``np.interp`` for
+the rest), or every trial's exact tax (``exact_all``: the host bridge
+``tax/vectorized.yearly_activity_from_trades`` for attached trade lists,
+or, for ``Trade_Replay`` descriptors, ``_exact_tax_via_replay``: the
+general path with emission, the device bridge with kernels K7 and K8, and
+the vectorized tax). ``_fill_missing_trades`` replays the sampled trials
+that carry only a descriptor. A taxable result with neither is an error,
+never zero tax.
+
+And the report's post-tax tables, sampled and exact over every trial.
 
 Port of ``letf_tpu/reporting.py::sampled_post_tax_tables``, the reference's
 tax amortization (reporting.py:455-509) at report scale: per taxable
@@ -28,6 +46,9 @@ CPU, float32 on the card, as on the TPU).
 
 from __future__ import annotations
 
+import os
+import re
+import sys
 import time
 from typing import Dict, List, Optional
 
@@ -36,12 +57,17 @@ import torch
 
 from letf_tpu_torch import config as cfg
 from letf_tpu_torch.income import simulate_wired_income_path
+from letf_tpu_torch.integration import process_trades_with_wired_engine
 from letf_tpu_torch.tax.device_bridge import (
     ELECTION_METHODS,
     max_buy_events,
     yearly_activity_from_emission,
 )
-from letf_tpu_torch.tax.vectorized import total_tax_all_trials
+from letf_tpu_torch.tax.engine import TaxpayerElections
+from letf_tpu_torch.tax.vectorized import (
+    total_tax_all_trials,
+    yearly_activity_from_trades,
+)
 from letf_tpu_torch.utils.device import glue_dtype
 
 # The reference's state table, sampled-tax budget and default tax
@@ -67,6 +93,113 @@ DEFAULT_TAX_CONFIG = {
     "career_stage": "mid", "years_until_retirement": None,
     "retirement_income": None,
 }
+
+
+_PCTS = [("p10", 10), ("p25", 25), ("p40", 40), ("p60", 60),
+         ("p75", 75), ("p90", 90)]
+
+
+def _non_interactive() -> bool:
+    return (not sys.stdin.isatty() or bool(os.getenv("LETF_NON_INTERACTIVE"))
+            or bool(os.getenv("LETF_NONINTERACTIVE")))
+
+
+def _int_or(text: str, default):
+    """``int(text)`` after the reference's "," and "$" stripping, or
+    ``default`` where int() would refuse it."""
+    t = text.replace(",", "").replace("$", "").strip()
+    return int(t) if re.fullmatch(r"[+-]?\d+(_\d+)*", t) else default
+
+
+def get_tax_config_interactive() -> Dict:
+    """Tax configuration menu; defaults when stdin is not a terminal."""
+    if _non_interactive():
+        print("\n  [Non-interactive] Tax config: CA, $150k, Single, Mid-career")
+        return dict(DEFAULT_TAX_CONFIG)
+
+    print("\nSelect state (1=CA 2=NY 3=TX 4=FL 5=WA 6=NV 7=IL 8=MA 9=NJ):")
+    state_map = {"1": "CA", "2": "NY", "3": "TX", "4": "FL", "5": "WA",
+                 "6": "NV", "7": "IL", "8": "MA", "9": "NJ"}
+    state = state_map.get(input("Enter (1-9) [1]: ").strip() or "1", "CA")
+    income = _int_or(input("Ordinary income [150000]: ").strip()
+                     or "150000", 150000)
+    filing = "married" if (input("Filing (1=Single 2=Married) [1]: ").strip()
+                           == "2") else "single"
+    career = {"1": "early", "2": "mid", "3": "late"}.get(
+        input("Career stage (1=early 2=mid 3=late) [2]: ").strip() or "2",
+        "mid")
+    retire_str = input("Years until retirement [skip]: ").strip()
+    years_until_retirement = int(retire_str) if retire_str.isdigit() else None
+    retirement_income = None
+    if years_until_retirement:
+        ri = input("Retirement income [50% of peak]: ").strip()
+        if ri:
+            retirement_income = _int_or(ri, None)
+    return {
+        "state": state, "state_name": STATE_TAX_INFO[state]["name"],
+        "ordinary_income": income, "filing_status": filing,
+        "career_stage": career,
+        "years_until_retirement": years_until_retirement,
+        "retirement_income": retirement_income,
+    }
+
+
+def estimate_tax_simple(gains: float, ordinary_income: float, state: str,
+                        filing_status: str) -> Dict:
+    """Coarse 50/50 ST-LT split tax estimate (reporting.py:160-197)."""
+    if gains <= 0:
+        return {"total_tax": 0, "effective_rate": 0}
+    st, lt = gains * 0.5, gains * 0.5
+    total_income = ordinary_income + gains
+    if filing_status == "single":
+        cuts = [(100525, 0.22, 0.0), (191950, 0.24, 0.15),
+                (518900, 0.32, 0.15), (float("inf"), 0.37, 0.20)]
+        niit_thresh = 200000
+    else:
+        cuts = [(201050, 0.22, 0.0), (383900, 0.24, 0.15),
+                (583750, 0.32, 0.15), (float("inf"), 0.37, 0.20)]
+        niit_thresh = 250000
+    for limit, st_rate, lt_rate in cuts:
+        if total_income < limit:
+            break
+    federal = st * st_rate + lt * lt_rate
+    state_tax = gains * STATE_TAX_INFO[state]["rate"]
+    niit = (min(gains, max(0, total_income - niit_thresh)) * 0.038
+            if total_income > niit_thresh else 0)
+    total = federal + state_tax + niit
+    return {"total_tax": total,
+            "effective_rate": total / gains * 100 if gains > 0 else 0}
+
+
+_SCENARIOS = {
+    10: ("WORST 10% (beaten in 90% of cases)",
+         "2-3 major crashes; VIX >30 for months; strategy whipsaws; "
+         "comparable to 2000-2010."),
+    25: ("BELOW AVERAGE (beaten in 75% of cases)",
+         "One major crash with a slow 3-5y recovery; comparable to 2007-2013."),
+    40: ("SLIGHTLY BELOW MEDIAN",
+         "A few 15-20% corrections, normal volatility; an average decade."),
+    60: ("SLIGHTLY ABOVE MEDIAN",
+         "Minor corrections only, low volatility; a good decade."),
+    75: ("ABOVE AVERAGE (needs luck)",
+         "Max ~10% pullbacks, VIX 12-15, mostly bull; comparable to 2012-2017."),
+    90: ("BEST 10% (DO NOT PLAN ON THIS)",
+         "No corrections, VIX 10-12 throughout; the best period on record."),
+}
+
+
+def explain_percentile(p: int, pre_cagr: float, horizon: int,
+                       spy_cagr: float = 0.0) -> str:
+    if p not in _SCENARIOS:
+        return ""
+    title, body = _SCENARIOS[p]
+    return (f"\nP{p} - {title}\n"
+            f"  Strategy pre-tax CAGR {pre_cagr:+.2f}% | SPY B&H at P{p}: "
+            f"{spy_cagr:+.2f}% | horizon {horizon}y\n  {body}\n")
+
+
+def _wealth(results: List[Dict]) -> np.ndarray:
+    return np.array([r["Final_Wealth"] for r in results])
 
 
 def _income_kwargs(tax_config: Dict) -> Dict:
@@ -381,4 +514,362 @@ def exact_post_tax_all_trials(model, time_horizon: int,
             entry[f"post_tax_p{p}"] = float(np.percentile(pw, p))
         out[sid] = entry
     _mark(stage_seconds, "reduce", t0, dev)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# The results-list route: per-trial result dicts
+# ---------------------------------------------------------------------------
+
+def _exact_tax_via_replay(ctx: Dict, sid: str, n: int, time_horizon: int,
+                          tax_config: Dict, chunk_size: int = 4096,
+                          replay_cache: Optional[Dict] = None) -> np.ndarray:
+    """Exact per-trial tax for trials [0, n) of one strategy by
+    deterministic replay: chunks re-run on the general path with journal
+    emission, through the device bridge (kernels K7 and K8) and the
+    vectorized tax, as ``exact_post_tax_all_trials`` taxes them. Used when
+    a results list carries Trade_Replay descriptors instead of trade lists
+    (num_simulations > trade_list_limit). ``replay_cache``, when given,
+    keeps each chunk's emission for the other strategies of the same
+    results (the replay of a chunk is deterministic, so every strategy's
+    columns come from one run of it)."""
+    from letf_tpu_torch.parallel.mc_runner import (
+        _Run,
+        _trial_layout,
+        general_chunk,
+    )
+
+    col = cfg.TAXABLE_IDS.index(sid)
+    run = _Run(ctx["model"], time_horizon, ctx["num_simulations"],
+               ctx["seed"], chunk_size, ctx["use_antithetic"],
+               ctx["random_start_method"], anchors=ctx["anchors"],
+               device=ctx["device"], engine_mode=ctx["engine_mode"])
+    dt = glue_dtype(run.device)
+    ids, anti = _trial_layout(ctx["num_simulations"], ctx["use_antithetic"])
+    income, tax_kw = tax_setup(tax_config, time_horizon)
+    cache = {} if replay_cache is None else replay_cache
+    taxes = []
+    for start in range(0, n, chunk_size):
+        stop = min(start + chunk_size, n)
+        key = (start, stop)
+        if key not in cache:
+            _, emission = general_chunk(run, ids[start:stop],
+                                        anti[start:stop], apply_costs=True)
+            cache[key] = [e if e.dtype == torch.int8 else e.to(dt)
+                          for e in emission]
+        cols4 = [e[:, :, col] for e in cache[key]]
+        tax = bridge_tax(cols4, (0, 1) if sid == "S8" else (0,),
+                         time_horizon, income, tax_kw)
+        taxes.append(tax.cpu().numpy())
+    return np.concatenate(taxes)
+
+
+def _fill_missing_trades(results: List[Dict], sample, sid: str,
+                         time_horizon: int) -> None:
+    """Materialize Trade_Lists for sampled trials that carry only a
+    Trade_Replay descriptor, via one batched deterministic replay.
+    Raises if a sampled trial has neither: taxing an absent trade list as
+    zero trades would silently report post-tax == pre-tax."""
+    missing = [idx for idx in sample
+               if results[idx].get("Trade_List") is None]
+    if not missing:
+        return
+    replays = [results[idx].get("Trade_Replay") for idx in missing]
+    if any(r is None for r in replays):
+        raise ValueError(
+            f"{sid}: {len(missing)} sampled trial(s) carry neither "
+            "Trade_List nor Trade_Replay: cannot compute post-tax wealth. "
+            "Attach trades (trade_list_limit) or use run_monte_carlo + "
+            "reporting.exact_post_tax_all_trials for the tensor path.")
+    from letf_tpu_torch.parallel.mc_runner import _trade_lists
+
+    # emit_trade_lists' replay, building the trade lists of this strategy
+    # alone.
+    ctx = replays[0]["ctx"]
+    got = _trade_lists(
+        ctx["model"], time_horizon, [r["trial"] for r in replays],
+        ctx["seed"], ctx["use_antithetic"], ctx["random_start_method"],
+        ctx["num_simulations"], True, ctx["engine_mode"],
+        ctx["bootstrap_pools"], None, ctx["anchors"], ctx["device"], [sid])
+    for idx, rep in zip(missing, replays):
+        results[idx]["Trade_List"] = got[rep["trial"]][sid]
+
+
+def _tax_all_trials(results: List[Dict], time_horizon: int, tax_config: Dict,
+                    sid: str, exact_all: bool = False,
+                    replay_cache: Optional[Dict] = None,
+                    stage_seconds: Optional[Dict] = None) -> np.ndarray:
+    """Per-trial tax for a strategy's result list.
+
+    Default: the reference's amortization: exact tax for <= MAX_TAX_SIMS
+    trials sampled evenly across sorted wealth (the host tax chain),
+    interpolated for the rest. With ``exact_all=True`` every trial is
+    taxed exactly: attached trade lists through the host bridge and the
+    vectorized tax (float64, on the host), Trade_Replay descriptors through
+    ``_exact_tax_via_replay`` (``replay_cache``: its chunk emissions).
+
+    Results whose Trade_List was not materialized must carry a
+    Trade_Replay descriptor; the needed trials are replayed. A result with
+    neither is a hard error: it is never priced as zero tax.
+    ``stage_seconds``, when given, accumulates the host-clock seconds of
+    "replay" (trade lists replayed for the sample, or the exact route's
+    emission, bridge and tax) and "host_chain" (the host tax chain)."""
+    wealth = _wealth(results)
+    n = len(results)
+    t0 = time.perf_counter()
+
+    def mark(name):
+        nonlocal t0
+        if stage_seconds is not None:
+            stage_seconds[name] = (stage_seconds.get(name, 0.0)
+                                   + time.perf_counter() - t0)
+        t0 = time.perf_counter()
+
+    if exact_all:
+        if all(r.get("Trade_List") is not None for r in results):
+            elections = TaxpayerElections()
+            yearly = np.stack([
+                yearly_activity_from_trades(r["Trade_List"], time_horizon,
+                                            elections) for r in results])
+            trades_per_year = np.array(
+                [len(r["Trade_List"]) / time_horizon for r in results])
+            income_path = simulate_wired_income_path(
+                tax_config.get("ordinary_income", 150000), time_horizon,
+                **_income_kwargs(tax_config))
+            out = total_tax_all_trials(
+                torch.as_tensor(yearly), torch.as_tensor(income_path),
+                cfg.INITIAL_CAPITAL, torch.as_tensor(trades_per_year),
+                filing_status=tax_config.get("filing_status",
+                                             "single").lower(),
+                state_code=tax_config.get("state", "CA"))
+            mark("host_chain")
+            return out["total_tax"].numpy()
+        replay = next((r.get("Trade_Replay") for r in results
+                       if r.get("Trade_Replay") is not None), None)
+        if replay is None:
+            raise ValueError(
+                f"{sid}: exact_all tax requested but results carry neither "
+                "Trade_List nor Trade_Replay: cannot compute post-tax "
+                "wealth (refusing to price missing trades as zero tax).")
+        taxes = _exact_tax_via_replay(replay["ctx"], sid, n, time_horizon,
+                                      tax_config, replay_cache=replay_cache)
+        mark("replay")
+        return taxes
+    order = np.argsort(wealth)
+    if n <= MAX_TAX_SIMS:
+        sample = list(range(n))
+    else:
+        positions = np.linspace(0, n - 1, MAX_TAX_SIMS, dtype=int)
+        sample = [int(order[p]) for p in positions]
+    _fill_missing_trades(results, sample, sid, time_horizon)
+    mark("replay")
+
+    sw, stx = [], []
+    for idx in sample:
+        trades = results[idx]["Trade_List"]
+        if trades:
+            tax = process_trades_with_wired_engine(
+                trades=trades, time_horizon_years=time_horizon,
+                elections=TaxpayerElections(),
+                initial_capital=cfg.INITIAL_CAPITAL,
+                strategy_id=f"{sid}_bulk", tax_config=tax_config)["total_tax"]
+        else:
+            tax = 0.0
+        sw.append(wealth[idx])
+        stx.append(tax)
+
+    sw, stx = np.array(sw), np.array(stx)
+    o = np.argsort(sw)
+    if n <= MAX_TAX_SIMS:
+        all_tax = np.zeros(n)
+        for i, idx in enumerate(sample):
+            all_tax[idx] = stx[i]
+    else:
+        all_tax = np.interp(wealth, sw[o], stx[o])
+    mark("host_chain")
+    return all_tax
+
+
+def create_summary_statistics(mc_results: Dict[str, List[Dict]],
+                              time_horizon: int,
+                              tax_config: Optional[Dict] = None,
+                              exact_tax_all_trials: bool = False, *,
+                              stage_seconds: Optional[Dict] = None) -> Dict:
+    """Percentile-fan report of a results list: the Roth (pre-tax) and
+    taxable (post-tax) tables, printed as the reference prints them and
+    returned {"roth": {sid: row}, "taxable": {sid: row}}.
+    ``stage_seconds``, when given, accumulates ``_tax_all_trials``'s
+    "replay" and "host_chain" seconds."""
+    if tax_config is None:
+        tax_config = dict(DEFAULT_TAX_CONFIG)
+
+    horizon = time_horizon
+    cap = cfg.INITIAL_CAPITAL
+    out: Dict[str, Dict] = {"roth": {}, "taxable": {}}
+    replay_cache: Dict = {}
+
+    spy_results = mc_results.get("S2", [])
+    spy_wealth = _wealth(spy_results) if spy_results else np.array([])
+
+    # Market scenario banner keyed to SPY percentiles.
+    if len(spy_wealth):
+        print(f"\n{'=' * 100}")
+        print(f"MARKET SCENARIOS FOR THE {horizon}-YEAR HORIZON (SPY reference)")
+        print(f"{'=' * 100}")
+        for _, pv in _PCTS:
+            if pv == 50:
+                continue
+            w = np.percentile(spy_wealth, pv)
+            cagr = (w / cap) ** (1 / horizon) - 1
+            print(explain_percentile(pv, cagr * 100, horizon, cagr * 100),
+                  end="")
+
+    # ---------------- Roth table ----------------
+    print(f"\n{'=' * 110}")
+    print(f"ROTH IRA COMPATIBLE - {horizon}-YEAR HORIZON (pre-tax)")
+    print(f"{'=' * 110}")
+    header = (f"{'Rank':<5}{'ID':<5}{'Strategy':<20}{'Win%':>7}"
+              + "".join(f"{p:>9}" for p, _ in _PCTS[:3])
+              + f"{'Median$':>10}{'CAGR':>8}"
+              + "".join(f"{p:>9}" for p, _ in _PCTS[3:])
+              + f"{'MaxDD':>8}{'Trd/Y':>7}")
+    print(header)
+    print("-" * 110)
+
+    roth_rows = []
+    for sid in cfg.ROTH_IDS:
+        if not mc_results.get(sid):
+            continue
+        results = mc_results[sid]
+        wealth = _wealth(results)
+        row = {
+            "id": sid, "name": cfg.STRATEGIES[sid]["name"],
+            "median": float(np.median(wealth)),
+            "cagr": (np.median(wealth) / cap) ** (1 / horizon) - 1,
+            "max_dd": float(np.median([r.get("Max_DD", 0) for r in results])),
+            "trades": float(np.mean([r.get("Trades_Per_Year", 0)
+                                     for r in results])),
+            "win": (float(np.mean(wealth > spy_wealth) * 100)
+                    if len(spy_wealth) == len(wealth) else 0.0),
+        }
+        for pn, pv in _PCTS:
+            row[pn] = float(np.percentile(wealth, pv))
+        roth_rows.append(row)
+        out["roth"][sid] = row
+
+    roth_rows.sort(key=lambda x: x["median"], reverse=True)
+    for i, d in enumerate(roth_rows, 1):
+        print(f"{i:<5}{d['id']:<5}{d['name']:<20}{d['win']:>6.1f}%"
+              + "".join(f"{d[p]:>9,.0f}" for p, _ in _PCTS[:3])
+              + f"{d['median']:>10,.0f}{d['cagr'] * 100:>7.2f}%"
+              + "".join(f"{d[p]:>9,.0f}" for p, _ in _PCTS[3:])
+              + f"{d['max_dd'] * 100:>7.1f}%{d['trades']:>7.1f}")
+
+    # ---------------- Taxable table ----------------
+    print(f"\n{'=' * 110}")
+    print(f"TAXABLE BROKERAGE - {horizon}-YEAR HORIZON "
+          f"({tax_config.get('state_name', tax_config.get('state'))}, "
+          f"${tax_config.get('ordinary_income', 0):,}, "
+          f"{tax_config.get('filing_status', 'single')})")
+    print(f"{'=' * 110}")
+    print(f"{'Rank':<5}{'ID':<5}{'Strategy':<24}{'PreTax$':>12}{'PostTax$':>12}"
+          f"{'PostCAGR':>10}{'Win%':>7}{'MaxDD':>8}{'Trd/Y':>8}")
+    print("-" * 110)
+
+    # SPY post-tax cache reused for every taxable win-rate comparison.
+    spy_post_tax = None
+    if spy_results:
+        if any(r.get("Trade_List") or r.get("Trade_Replay")
+               for r in spy_results):
+            spy_taxes = _tax_all_trials(spy_results, horizon, tax_config,
+                                        "SPY",
+                                        exact_all=exact_tax_all_trials,
+                                        replay_cache=replay_cache,
+                                        stage_seconds=stage_seconds)
+            spy_post_tax = spy_wealth - spy_taxes
+        else:
+            # Reference behavior (reporting.py:426-437): SPY results carrying
+            # no trade list compare post-tax == pre-tax by design (S2 is a
+            # benchmark id with no journal). The hard missing-trades error in
+            # _tax_all_trials applies to TAXABLE strategies only.
+            spy_post_tax = spy_wealth.copy()
+
+    tax_rows = []
+    for sid in cfg.TAXABLE_IDS:
+        if not mc_results.get(sid):
+            continue
+        results = mc_results[sid]
+        wealth = _wealth(results)
+        if not len(wealth):
+            continue
+        taxes = _tax_all_trials(results, horizon, tax_config, sid,
+                                exact_all=exact_tax_all_trials,
+                                replay_cache=replay_cache,
+                                stage_seconds=stage_seconds)
+        post = wealth - taxes
+
+        pcts = {}
+        for pn, pv in _PCTS:
+            pre_w = float(np.percentile(wealth, pv))
+            post_w = float(np.percentile(post, pv))
+            pre_cagr = (pre_w / cap) ** (1 / horizon) - 1
+            post_cagr = ((post_w / cap) ** (1 / horizon) - 1
+                         if post_w > 0 else float("nan"))
+            if pre_cagr > 0.001 and not np.isnan(post_cagr):
+                drag = min((pre_cagr - post_cagr) / pre_cagr * 100, 100.0)
+            elif pre_cagr > 0.001:
+                drag = 100.0
+            else:
+                drag = 0.0
+            pcts[pn] = {"pre_wealth": pre_w, "post_wealth": post_w,
+                        "pre_cagr": pre_cagr, "post_cagr": post_cagr,
+                        "drag": drag, "tax_paid": pre_w - post_w}
+
+        if spy_post_tax is not None and len(spy_post_tax) == len(post):
+            win = float(np.mean(post > spy_post_tax) * 100)
+        elif len(spy_wealth) == len(wealth):
+            win = float(np.mean(wealth > spy_wealth) * 100)
+        else:
+            win = 0.0
+
+        row = {
+            "id": sid, "name": cfg.STRATEGIES[sid]["name"], "pcts": pcts,
+            "max_dd": float(np.median([r.get("Max_DD", 0) for r in results])),
+            "trades": float(np.mean([r.get("Trades_Per_Year", 0)
+                                     for r in results])),
+            "win": win,
+        }
+        tax_rows.append(row)
+        out["taxable"][sid] = row
+    del replay_cache
+
+    # Ranked by P60 post-tax wealth (reference reporting.py:563).
+    tax_rows.sort(key=lambda x: x["pcts"]["p60"]["post_wealth"], reverse=True)
+    for i, d in enumerate(tax_rows, 1):
+        p60 = d["pcts"]["p60"]
+        post_cagr = (p60["post_cagr"] * 100 if not np.isnan(p60["post_cagr"])
+                     else float("nan"))
+        print(f"{i:<5}{d['id']:<5}{d['name']:<24}{p60['pre_wealth']:>12,.0f}"
+              f"{p60['post_wealth']:>12,.0f}{post_cagr:>9.2f}%"
+              f"{d['win']:>6.1f}%{d['max_dd'] * 100:>7.1f}%{d['trades']:>8.1f}")
+    print("-" * 110)
+    print("Ranked by P60 post-tax wealth. Drag capped at 100% (IRC §1211 "
+          "asymmetry: gains taxed fully, losses deductible $3k/yr).")
+
+    # ---------------- top-5 percentile detail ----------------
+    print("\nPERCENTILE DETAIL - top 5 post-tax strategies")
+    print("-" * 110)
+    for d in tax_rows[:5]:
+        print(f"\n{d['name']} ({d['id']})")
+        hdr = f"{'':>8}" + "".join(f"{pn.upper():>14}" for pn, _ in _PCTS)
+        print(hdr)
+        for label, key, fmt in (("Pre:", "pre_wealth", ",.0f"),
+                                ("Post:", "post_wealth", ",.0f"),
+                                ("Drag:", "drag", ".1f")):
+            line = f"{label:>8}"
+            for pn, _ in _PCTS:
+                line += f"{d['pcts'][pn][key]:>14{fmt}}"
+            print(line)
+    print("=" * 110)
+
     return out

@@ -2,7 +2,9 @@
 
 Port of ``letf_tpu/tax/vectorized.py``: ``_piecewise``, ``_inflated_tax``,
 ``net_years`` (a loop over the Y years), ``comprehensive_tax`` and
-``total_tax_all_trials``. Netting calls the port's copy of the statute,
+``total_tax_all_trials``, and the host bridge
+``yearly_activity_from_trades`` (one trade list through the wired lot and
+wash-sale machinery of ``integration.py``). Netting calls the port's copy of the statute,
 ``tax/engine.py::_net_core``, through its ``xp=(minimum, maximum)`` pair
 ``engine.TORCH_XP`` (torch versions that accept Python-float operands); the bracket tables
 are ``tax/brackets.py``. Tensors run in the dtype of the yearly activity.
@@ -12,6 +14,7 @@ from __future__ import annotations
 
 from typing import Dict
 
+import numpy as np
 import torch
 
 from letf_tpu_torch.tax.brackets import (
@@ -166,3 +169,21 @@ def total_tax_all_trials(yearly_activity, income_path, initial_capital,
     return {"total_tax": year_tax.sum(1), "yearly_tax": year_tax,
             "taxable_st": t_st, "taxable_lt": t_lt,
             "final_cf_st": cf_st, "final_cf_lt": cf_lt}
+
+
+def yearly_activity_from_trades(trades, n_years: int,
+                                elections=None) -> np.ndarray:
+    """Host bridge: one trade list -> [Y, 4] yearly (st_g, st_l, lt_g, lt_l)
+    via the exact wired lot/wash machinery (integration.py pass 1+2)."""
+    from letf_tpu_torch.integration import _yearly_activity_from_trades
+    from letf_tpu_torch.tax.engine import TaxpayerElections
+
+    if elections is None:
+        elections = TaxpayerElections()
+    acts = _yearly_activity_from_trades(trades, elections)
+    out = np.zeros((n_years, 4))
+    for year, a in acts.items():
+        if 0 <= year < n_years:
+            out[year] = [a["st_gains"], a["st_losses"],
+                         a["lt_gains"], a["lt_losses"]]
+    return out

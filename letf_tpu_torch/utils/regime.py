@@ -3,13 +3,17 @@
 smoothing and the hysteresis state machine, in float64 numpy, with the
 frame operations of ``utils/frame.py`` in place of pandas.
 
-``infer_regime_from_vix_jax`` (the device scan) serves only the historical
-backtest and waits with it (ROADMAP item 16).
+``infer_regime_from_vix_batched`` is the device form of the JAX package's
+``infer_regime_from_vix_jax`` (``:81``) vmapped over windows, as the
+historical backtest runs it: a torch day loop over ``[T, W]`` windows at
+once, in the caller's dtype, with the reference's order of operations
+(near a threshold one ulp flips a regime).
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from letf_tpu_torch.utils.frame import bfill, ffill, fillna, rolling_std
 
@@ -76,3 +80,27 @@ def infer_regime_from_vix(vix_series, realized_vol=None, term_spread=None,
             current = 0
         regimes[i] = current
     return regimes
+
+
+def infer_regime_from_vix_batched(vix, rv, ts, hysteresis: float = 0.08,
+                                  smoothing: float = 0.94) -> torch.Tensor:
+    """Regimes of W windows at once: ``vix``, ``rv``, ``ts`` [T, W] tensors
+    (pre-cleaned, finite) -> [T, W] int32. The logistic score for all days,
+    then the EWMA and the hysteresis state machine as one day loop; each
+    window starts afresh from its own first day."""
+    raw = stress_logit(vix, rv, ts, xp=torch)
+    enter_high = 0.50 + hysteresis / 2
+    exit_high = 0.50 - hysteresis / 2
+    smoothed = raw[0]
+    current = (raw[0] >= 0.50).to(torch.int32)
+    out = torch.empty(raw.shape, dtype=torch.int32, device=raw.device)
+    out[0] = current
+    one, zero = torch.ones_like(current), torch.zeros_like(current)
+    for t in range(1, raw.shape[0]):
+        smoothed = smoothing * smoothed + (1 - smoothing) * raw[t]
+        current = torch.where((current == 0) & (smoothed >= enter_high), one,
+                              torch.where((current == 1)
+                                          & (smoothed <= exit_high),
+                                          zero, current))
+        out[t] = current
+    return out

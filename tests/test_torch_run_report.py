@@ -17,9 +17,9 @@
   equal the percentiles of each trial's wealth less the exact tax that the
   JAX package's bridge and tax give on the port's own emission (rtol
   1e-9).
-- ``--report`` reaches ``run_report`` with the reference's arguments, the
-  unported branches raise naming their ROADMAP item, and the default
-  ``device="cuda"`` raises without a card.
+- ``--report`` reaches ``run_report``, the default branch ``runner.run``
+  and ``--quick`` ``quick.main``, each with the reference's arguments
+  (and ``--device``); the default ``device="cuda"`` raises without a card.
 """
 
 import functools
@@ -88,7 +88,7 @@ def params(fn):
 
 def test_signatures_match_the_reference():
     for fn, extra in ((runner.run_report, ["device", "stage_seconds"]),
-                      (runner.run, []),
+                      (runner.run, ["device", "stage_seconds"]),
                       (tcal.calibrate_all, ["device"]),
                       (tcal.calibrate_joint_return_model, ["device"]),
                       (tcal.calibrate_funding_spread_model, ["device"]),
@@ -219,37 +219,75 @@ def test_sampled_report_taxes_match_jax(fits, capsys):
 
 
 def test_cli_routes(monkeypatch):
+    from letf_tpu_torch import quick
+
     seen = {}
 
-    def fake_run_report(**kw):
-        seen.update(kw)
-        return {}
+    def fake(name):
+        def call(*a, **kw):
+            seen[name] = (a, kw)
+            return {}
+        return call
 
-    monkeypatch.setattr(runner, "run_report", fake_run_report)
+    monkeypatch.setattr(runner, "run_report", fake("report"))
+    monkeypatch.setattr(runner, "run", fake("run"))
+    monkeypatch.setattr(quick, "main", fake("quick"))
     monkeypatch.setattr(tcfg, "NUM_SIMULATIONS", tcfg.NUM_SIMULATIONS)
+    monkeypatch.setenv("LETF_NON_INTERACTIVE", "")
     cli.main(["--report", "--synthetic-data", "--sims", "64", "--horizons",
               "10", "20", "--state", "TX", "--tax-mode", "none",
               "--device", "cpu"])
-    assert seen == dict(horizons=[10, 20], num_simulations=64, seed=0,
-                        force_synthetic=True,
-                        tax_overrides={"state": "TX",
-                                       "ordinary_income": 150000,
-                                       "filing_status": "single"},
-                        tax_mode="none", device="cpu")
+    assert seen.pop("report") == ((), dict(
+        horizons=[10, 20], num_simulations=64, seed=0, force_synthetic=True,
+        tax_overrides={"state": "TX", "ordinary_income": 150000,
+                       "filing_status": "single"},
+        tax_mode="none", device="cpu"))
     assert tcfg.NUM_SIMULATIONS == 64
-    for argv, item in (([], "item 16"), (["--quick"], "item 16")):
-        with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-            cli.main(argv)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 16"):
-        runner.run()
+    # The default branch: the full analysis, the menus at their defaults.
+    cli.main(["--horizons", "5", "--seed", "7", "--state", "NJ", "--income",
+              "90000", "--filing", "married", "--start-date", "1980-01-01"])
+    assert seen.pop("run") == ((), dict(
+        horizons=[5], seed=7,
+        tax_overrides={"state": "NJ", "ordinary_income": 90000,
+                       "filing_status": "married"},
+        force_synthetic=False, device="cuda"))
+    assert tcfg.ANALYSIS_START_DATE == "1980-01-01"
+    assert tcfg.NUM_SIMULATIONS == 64
+    import os
+    assert os.environ["LETF_NON_INTERACTIVE"] == "1"
+    monkeypatch.setattr(tcfg, "ANALYSIS_START_DATE", "1926-07-01")
+    # --quick: 10 simulations unless --sims says otherwise.
+    cli.main(["--quick", "--device", "cpu"])
+    assert seen.pop("quick") == ((), dict(device="cpu",
+                                          force_synthetic=False))
+    assert tcfg.NUM_SIMULATIONS == 10
+    cli.main(["--quick", "--sims", "4", "--synthetic-data"])
+    assert seen.pop("quick") == ((), dict(device="cuda",
+                                          force_synthetic=True))
+    assert tcfg.NUM_SIMULATIONS == 4 and not seen
 
 
-def test_cuda_without_a_card_raises(fits):
+def test_cuda_without_a_card_raises(fits, monkeypatch):
     if torch.cuda.is_available():
         pytest.skip("a card is present: the device resolves")
+    monkeypatch.setattr(tcfg, "NUM_SIMULATIONS", tcfg.NUM_SIMULATIONS)
+    monkeypatch.setenv("LETF_NON_INTERACTIVE", "")
     with pytest.raises(RuntimeError, match="cuda"):
         runner.run_report(horizons=[1], num_simulations=8, model=fits)
     with pytest.raises(RuntimeError, match="cuda"):
         cli.main(["--report", "--synthetic-data", "--sims", "8"])
     with pytest.raises(RuntimeError, match="cuda"):
         tcal.fit_garch11_mle(np.ones(300))
+    # The full analysis, the results list and the quick flow default to the
+    # card too, and nothing drops to the CPU: each raises before any work.
+    from letf_tpu_torch import quick
+    from letf_tpu_torch.parallel import mc_runner as tmc
+
+    with pytest.raises(RuntimeError, match="cuda"):
+        runner.run(horizons=[1])
+    with pytest.raises(RuntimeError, match="cuda"):
+        cli.main(["--synthetic-data", "--sims", "8", "--horizons", "1"])
+    with pytest.raises(RuntimeError, match="cuda"):
+        quick.main()
+    with pytest.raises(RuntimeError, match="cuda"):
+        tmc.parallel_monte_carlo_fixed(["S1"], 1, fits, num_simulations=8)
