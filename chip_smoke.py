@@ -49,7 +49,7 @@ Phases, each raising on failure:
    to the reference's exact-all statistics and to the tax reference's
    shared trials (phase_exact_all).
 8. This slice's main path, monte_carlo_report(default_sim_model(), 30,
-   32,768 trials, seed 2, engine_mode="parametric") with its default
+   16,384 trials, seed 2, engine_mode="parametric") with its default
    sampled taxes, the seconds of each stage of one of its chunks, K4
    (strategies) on that chunk's channels bit for bit the first port's
    kernel (its output digests, stored below) and within check_parity's
@@ -87,14 +87,33 @@ Phases, each raising on failure:
    to the host tax chain's at the sampled trials; (4) the CLI's default
    branch (--synthetic-data --sims 64 --horizons 10) and --quick as
    subprocesses.
-11. The buy-and-hold headline: K6 against the port of the XLA twin by
+11. The reference's other engine modes (phase_engine_modes), in a
+   temporary cache of the port's: (1) run_monte_carlo(default_sim_model(),
+   30, 16,384 trials, seed 2, engine_mode="legacy_hybrid",
+   bootstrap_pools=the block bootstrap pools of the offline history) (K4
+   at its channel shape) and the reference-shaped sampled_post_tax_tables
+   on its wealth with the pools (K7, K8); its first 1,024 trials against
+   the JAX package's (ENGINE_*, printed by
+   tools/engine_modes_reference.py): offset and regime-day sums exact,
+   S1-S3 medians within ENGINE_P50_RTOL, each day's chosen block row of
+   128 trials (float32 near-ties counted); the run's Gumbel draws timed
+   inside it; (2) parallel_monte_carlo_fixed at 200 x 10 y under
+   SIM_ENGINE_MODE="legacy_hybrid"; (3) the reference-shaped per-trial
+   institutional call generate_paths_batch(model, key, ids, anti, 7,560)
+   at 1,024 trials (its draws and joint day loop timed inside it) and
+   generate_paths_batched's joint_kernel="off" route
+   (1,024 x 10 y), the first 8 trials' first 150 days against the JAX
+   package's, and its fast_draws=False route bitwise the per-trial call
+   (1,024 x 1 y); (4) the three diagnose_* functions at the sizes of
+   tests/test_aux.py:58 against the JAX package's.
+12. The buy-and-hold headline: K6 against the port of the XLA twin by
    bench.py's distribution gate (262,144 x 10 years), then
    gbm_percentile_report(1, 1,048,576, 30) after a seed-0 warm-up, held
    to the first port's K6 (its values, stored below).
-12. The validation invariants: zero-drift drag through K3, flat-market
+13. The validation invariants: zero-drift drag through K3, flat-market
    decay through K6.
-13. torch.profiler breakdowns of one pre-tax chunk and of the post-tax part
-   of a one-chunk sampled report; a breakdown of one 4,096-trial
+14. A torch.profiler breakdown of one pre-tax chunk; the post-tax part of
+   a one-chunk sampled report by stage and a breakdown of one 4,096-trial
    exact-tax chunk by stage (host clock, CUDA events, nvidia-smi's busy
    samples).
 Every path runs with the launch counters set to 0 just before it and read
@@ -1624,11 +1643,13 @@ def parametric_breakdown(model_t, B=B_CHUNK, years=30):
         return r
 
     innov = stage("draws", lambda: pe.draw_innovations(
-        model_t, key, rows // 2, rows % 2 == 1, sim, buf))
+        model_t, key, rows // 2, rows % 2 == 1, sim, buf,
+        engine_mode="parametric"))
     stage("returns_t_draws", lambda: pe.generate_returns_parametric(
         model_t, innov.regime_full, innov.mode_key))
     path = stage("path_scans_and_t_draws",
-                 lambda: pe.path_from_innovations(model_t, innov, sim))
+                 lambda: pe.path_from_innovations(
+                     model_t, innov, sim, engine_mode="parametric"))
     del innov
     sig = stage("signals", lambda: compute_signals(path))
     chans = k4.channels_from(path, sig)
@@ -1639,16 +1660,17 @@ def parametric_breakdown(model_t, B=B_CHUNK, years=30):
 
 def phase_parametric(model, model_t, counters):
     """This slice's main path: monte_carlo_report(default_sim_model(), 30,
-    num_simulations=32,768, seed=2, engine_mode="parametric") with its
+    num_simulations=16,384, seed=2, engine_mode="parametric") with its
     default sampled taxes and chunks of 16,384 (K4 at the production chunk
     shape), the counters set to 0 just before and read just after; then a
     stage breakdown of one chunk, and K4 against its plain version on that
     chunk's channels (phase_k4). Returns (the launches, K4's record)."""
     from letf_tpu_torch.parallel import mc_runner
 
-    # Two chunks: its time is ~90% torch draw glue, and the smoke's budget
-    # goes to holding the kernels at their shapes (K4 at 16,384 x 7,560).
-    n, years = 32_768, 30
+    # One chunk: its time is ~90% torch draw glue, and the smoke's budget
+    # goes to holding the kernels at their shapes (K4 at 16,384 x 7,560);
+    # the gates read the first 1,024 trials and that chunk.
+    n, years = 16_384, 30
     reset(counters)
     stages = {}
     torch.cuda.synchronize()
@@ -2974,6 +2996,314 @@ def phase_analysis(counters, smi):
     return launches, replay, dict(ragged, strategies=k4_rec)
 
 
+# The engine-modes phase's references, printed by
+#   JAX_PLATFORMS=cpu python3 -m tools.engine_modes_reference
+# (the JAX package on the CPU in float32, default_sim_model(), seed 2, the
+# block bootstrap pools of the committed history; see the tool).
+ENGINE_POOL_DIGESTS = {'a_data': 'f56e62435cbe2840', 'a_ret': 'd2cbb3d0c4453042', 'a_count': 'df0b58fa5549e2f1', 'b_data': '5dedcd8921b35c45', 'b_ret': '959adacc62e629c3', 'b_count': 'd1a92d366d06d103'}
+ENGINE_LEGACY_INT_SUMS = {'start_offset': 663260, 'regime_high_days': 1937774}
+ENGINE_LEGACY_S123_P50 = (151045.578125, 33028.9140625, 8464.103515625)
+ENGINE_PLAN_A = (1380610858, 1441621329, 313893960, 1757744849, 680719950, 43679734, 188309469, 1306327973, 1759325119, 814870069, 123586270, 1708824473, 1801529931, 1176682523, 203391740, 1787206128, 751003286, 556915537, 1570696823, 553690404, 1665420921, 301247165, 699566847, 1863938017, 993883129, 1352722655, 1952819557, 1229531509, 870979067, 1981457620, 187380078, 1664420289, 569534518, 593514303, 175852252, 1178908609, 49267582, 1803849905, 855852644, 13387508, 1244883968, 194964568, 996803483, 459073595, 722525970, 1641135953, 2118027457, 358370778, 1565628318, 299191971, 1699919934, 1114687403, 59734621, 459312082, 871827994, 880110412, 315823975, 172723857, 394579089, 1661841203, 1383199722, 1163398, 1458797881, 888525276, 759183950, 839216129, 1352078756, 2138634231, 1302159596, 2033958475, 1447302162, 1744941541, 727192888, 1712115272, 1773446033, 280874636, 1927531646, 923130024, 2136099300, 2127939764, 122996222, 4162105, 914514539, 1791347083, 264771967, 1417808637, 12291550, 645326150, 1239644657, 1779684637, 1050288407, 2029296659, 1025561986, 2085022169, 913641299, 836733551, 171651643, 53254643, 1729125196, 934271006, 1503572580, 966356381, 685014144, 1789061571, 1330082946, 1151873086, 109558767, 1463963227, 946021112, 144160151, 1585960426, 1578737599, 1791580957, 43068683, 1285498314, 181093845, 789893181, 1428230895, 671221239, 1956751656, 1591377366, 1627452249, 1389593324, 1207749262, 1741236286, 2117716848, 2126276941, 877061954)
+ENGINE_PLAN_B = (907194840, 1104897236, 280566443, 1585863220, 939412533, 590347566, 888251579, 1999107073, 229444915, 528295699, 1881424764, 745178878, 650371423, 97794391, 2076052082, 1680062117, 963653, 1559866236, 1668857970, 129658975, 11074397, 2146777105, 783426807, 409442492, 1662226344, 45040969, 1580166751, 235232624, 2016401828, 26101166, 40689353, 540657705, 33124377, 1893514025, 1440477435, 1766978267, 1552361465, 571332337, 1966613777, 1669463703, 299111112, 480997834, 545233635, 668615332, 423389803, 1189900531, 308479482, 1408640174, 329696405, 1879625232, 1523049690, 312333693, 2090464002, 1528809241, 1517328837, 884994428, 1227607844, 869536832, 1676582603, 1971255274, 1286091725, 681344156, 244188438, 1088968153, 701366513, 185688742, 1284429003, 679895491, 171457114, 419150768, 783582951, 211896660, 1598977017, 1211350466, 630196485, 690222688, 1780845500, 1768058736, 139979799, 1636237853, 1657410588, 913626894, 1003355292, 1423508188, 978125479, 332750321, 189103327, 1556531563, 89093547, 543218070, 22561457, 766091153, 440058870, 1628746782, 639479884, 1120722130, 45032657, 1458849431, 67819449, 1787206478, 36169626, 1091262344, 1774313337, 305270509, 304690207, 1795032124, 1821142571, 119275393, 1377990910, 1421897596, 1413691470, 1350393687, 1409027933, 949368128, 1268292544, 1690683132, 1963071083, 1805742230, 1798937999, 1154929175, 1325402625, 1964902962, 2030236323, 118123742, 1416039675, 976844940, 500145070, 2099168194)
+ENGINE_PER_TRIAL_LOG_GROWTH = [[0.5382500289052992, 0.4312567272361873, 0.33613679713540234, -0.016573559078991745, 0.20322225328083843, 0.2775354343035522], [-1.297496554788271, -0.6897197904731504, -0.39092395616435627, -0.18845216027795803, -0.15555766050478068, -0.2611204726967289], [-0.13850941115176427, -0.32293516285596763, -0.18866398121677477, -0.4524042857092526, -0.0699081691112394, 0.021360135793021765], [-0.08944798869324502, 0.30605647168385514, 0.23174210241489973, 0.3020476219558782, 0.14076557484293092, 0.042779302856163964], [-1.566069239273429, -0.9800530274585649, -0.5686922799136096, -0.1866633659834998, -0.23356175733412976, -0.33219757708078057], [0.3037361833998268, 0.4934078184490525, 0.4059085010351448, 0.05521183592714028, 0.2514584689657837, 0.28859330838841973], [-1.5344118897028844, -0.519911410276762, -0.3103676251637124, 0.6850750503142875, -0.12564961066985958, -0.36597763582478526], [0.6585859537076669, 0.4265179039087246, 0.319954790814972, -0.881120178066538, 0.18924040959779667, 0.35974840911873823]]
+ENGINE_PER_TRIAL_VIX_SUM = [3430.602620124817, 3421.437114715576, 2452.000428199768, 2916.2790536880493, 4736.219401359558, 4259.579332351685, 3100.9764471054077, 3019.3781185150146]
+ENGINE_OFF_LOG_GROWTH = [[0.3227198346943263, 0.2897458773751507, 0.236835648106617, -0.35662973170597273, 0.15062715700820883, 0.16823649814824254], [-0.4768006725887699, -0.4461540474037618, -0.25109010862755643, 0.07687465759397902, -0.09248356750001803, -0.09741800018704416], [-0.0410135365920956, -0.32851030805255205, -0.19314695020741635, -0.47775324096927146, -0.0720546128582202, 0.042649236395287594], [-0.07093195269326803, 0.32325630511012293, 0.24142171162502873, 0.3167970269818653, 0.14525593508371212, 0.03441142682296348], [0.018022255769512073, 0.029564125377061067, 0.04557285806040454, -0.08662729863063115, 0.04688525458763471, 0.05736975437495988], [-0.0886822797048365, -0.03669871201679545, 0.002092505001166787, 0.00635641634319805, 0.025404561873123333, 0.022997549357743542], [-1.0137832554572372, -0.5438946046606327, -0.3335169763150874, 0.44340799998923647, -0.14196637281096103, -0.26995522632030555], [0.8084902066328238, 0.5182231753508085, 0.3742911451428704, -0.565164410162671, 0.2118957239753935, 0.3364116044974604]]
+ENGINE_OFF_VIX_SUM = [3501.2681226730347, 4073.7359476089478, 2388.1316480636597, 2441.6101541519165, 2592.093758583069, 2988.8145780563354, 3032.4081830978394, 2989.0889682769775]
+ENGINE_DIAGNOSE = {'pipeline': {'spy_ann_mean': 0.08460447192192078, 'spy_ann_vol': 0.22576346283189114, 'high_vol_frac': 0.21924603174603174, 'vix_mean': 25.101322174072266, 'TQQQ_median_cagr': 0.17903542518615723, 'UPRO_median_cagr': -0.21258914470672607, 'SSO_median_cagr': -0.08043992519378662, 'TMF_median_cagr': -0.13659441471099854, 'SPY_median_cagr': 0.014857649803161621, 'QQQ_median_cagr': 0.18759536743164062, 'valid_frac': 1.0}, 'letf_drag': {'qqq_cagr': 0.1308882236480713, 'perfect_3x_cagr': 0.046331167221069336, 'with_costs_cagr': -0.040912508964538574, 'full_etf_cagr': -0.04269063472747803, 'vol_drag': -0.34633350372314453, 'cost_drag': -0.08724367618560791, 'te_drag': -0.0017781257629394531}, 'tqqq_detailed': {'daily_underlying_bps': 2.3673031330108643, 'daily_leveraged_bps': 7.101909160614014, 'daily_expense_bps': 0.3412698412698413, 'daily_borrow_bps': 3.1358449459075928, 'daily_te_bps': 0.010260564275085926, 'te_std_bps': 3.152386426925659, 'vix_mean': 24.918964385986328, 'annualized_cost_drag': 0.08762329071760178}}
+
+ENGINE_N = 16_384                  # the legacy run: one chunk x 30 y
+ENGINE_PLAN_TRIALS = 128           # trial ids whose block rows are checked
+ENGINE_PATH_TRIALS, ENGINE_PATH_DAYS = 8, 150
+ENGINE_OFF_YEARS = 10              # the joint_kernel="off" route's horizon
+# The diagnostics at tests/test_aux.py:58's sizes.
+ENGINE_DIAG_KW = {"pipeline": dict(years=1, n_trials=8),
+                  "letf_drag": dict(years=2), "tqqq_detailed": dict(years=1)}
+# Each bound lies near the geometric middle between the sound reading (the
+# port on an H100 80GB HBM3 at 700 W against the JAX package, float32 on
+# both sides) and the nearest control reading of
+# `python3 -m tools.engine_modes_reference --controls` (the JAX package on
+# the CPU, float32):
+# S1-S3 medians of the first 1,024 legacy trials (relative): sound
+# 1.397e-6; one trial next to the median changing rank moves them 1.362e-2
+# (seed 3: 9.06e-2).
+ENGINE_P50_RTOL = 1e-4
+# The per-trial paths' first 150 days: each asset's log-growth (absolute;
+# sound 1.73e-6, without moment matching 1.98e-2) and the VIX sum
+# (relative; sound 2.84e-7, the window a day later 2.74e-3).
+ENGINE_PATH_BOUNDS = (2e-4, 3e-5)
+# The diagnostics' numbers: relative, and absolute near zero.
+ENGINE_DIAG_BOUNDS = (1e-3, 1e-5)
+
+
+def plan_checksum(codes: np.ndarray) -> int:
+    """tools/engine_modes_reference.plan_checksum: sum(code * (t % 1009 +
+    1)) mod 2**31 - 1 over a trial's [T] day codes, in int64."""
+    c = np.asarray(codes).astype(np.int64)
+    w = np.arange(c.shape[-1]) % 1009 + 1
+    return [int(v) for v in (c * w).sum(-1) % (2 ** 31 - 1)]
+
+
+def coded_pools(pools):
+    """The pools with A's IRX and B's TLT columns (which steer no choice)
+    replaced by regime * 1e6 + block * 1000 + row: the stitched IRX and
+    TLT series name each day's block row."""
+    a, b = pools.a_data.copy(), pools.b_data.copy()
+    for data, c in ((a, 3), (b, 2)):
+        R, N, L = data.shape[:3]
+        data[..., c] = (np.arange(R)[:, None, None] * 1e6
+                        + np.arange(N)[None, :, None] * 1000
+                        + np.arange(L)[None, None, :])
+    return pools._replace(a_data=a, b_data=b)
+
+
+def engine_plans(model_t, pools, n, sim, buf):
+    """Each day's chosen block row of trial ids 0..n-1 on the card (the
+    regime paths and mode keys of draw_innovations, the sampler without
+    its noise on coded pools) against ENGINE_PLAN_A/B: the count of trials
+    whose rows differ (a float32 near-tie of the Gumbel argmax or a
+    segment length) in each pool."""
+    from letf_tpu_torch.models import bootstrap
+    from letf_tpu_torch.ops import path_engine as pe
+    from letf_tpu_torch.ops import rng
+
+    ids = torch.arange(n, device="cuda")
+    innov = pe.draw_innovations(model_t, rng.key(2, "cuda"), ids,
+                                torch.zeros(n, dtype=torch.bool,
+                                            device="cuda"), sim, buf,
+                                engine_mode="legacy_hybrid")
+    k_boot = rng.split(innov.mode_key, 2)[:, 0]
+    s = bootstrap.sample_bootstrap_returns(
+        bootstrap.pools_on(coded_pools(pools), "cuda", torch.float32),
+        innov.regime_full, k_boot, sim + buf, add_noise=False)
+    a = plan_checksum(s["IRX"].t().cpu().numpy())
+    b = plan_checksum(s["TLT_Ret"].t().cpu().numpy())
+    flips = (sum(x != y for x, y in zip(a, ENGINE_PLAN_A)),
+             sum(x != y for x, y in zip(b, ENGINE_PLAN_B)))
+    return flips
+
+
+def phase_engine_modes(counters, smi):
+    """The reference's other engine modes on the card, in a temporary
+    cache of the port's: (1) run_monte_carlo(default_sim_model(), 30,
+    16,384 trials, seed 2, engine_mode="legacy_hybrid", bootstrap_pools=
+    the pools of the port's offline history) (K4 at its channel shape)
+    and the reference-shaped sampled_post_tax_tables on its wealth with the
+    pools (K7, K8), the counters set to 0 just before and read just after;
+    the pools' digests, and its first 1,024 trials, against the JAX
+    package's (offset and regime-day sums exact, S1-S3 medians within
+    ENGINE_P50_RTOL), each day's block row of 128 trials (ENGINE_PLAN_*:
+    flips counted); the run's Gumbel draws timed inside it (CUDA events);
+    (2) parallel_monte_carlo_fixed at 200 x 10 y under
+    SIM_ENGINE_MODE="legacy_hybrid"; (3) the reference-shaped per-trial
+    institutional call generate_paths_batch(model, key, ids, anti, 7,560)
+    at 1,024 trials (its draws and joint day loop timed inside it) and
+    generate_paths_batched's joint_kernel="off" route (1,024 x 10 y),
+    their first 8 trials' first 150 days against the JAX package's
+    (ENGINE_PATH_BOUNDS), and its fast_draws=False route bitwise the
+    per-trial call (1,024 x 1 y); (4) the three diagnostics at
+    tests/test_aux.py:58's sizes against the JAX package's
+    (ENGINE_DIAG_BOUNDS). Returns the launches of (1)."""
+    from letf_tpu_torch import config as cfg
+    from letf_tpu_torch import diagnose, reporting
+    from letf_tpu_torch.data import fetch_historical_data
+    from letf_tpu_torch.models import bootstrap
+    from letf_tpu_torch.models.params import default_sim_model, from_numpy
+    from letf_tpu_torch.ops import path_batched as pb
+    from letf_tpu_torch.ops import path_engine as pe
+    from letf_tpu_torch.ops import rng
+    from letf_tpu_torch.parallel import mc_runner
+
+    t_phase = time.perf_counter()
+    model = default_sim_model()
+    model_t = from_numpy(model, "cuda", torch.float32)
+    years, sim, buf = 30, 30 * 252, FULL["buf"]
+    with port_cache():
+        t0 = time.perf_counter()
+        df = fetch_historical_data(force_synthetic=True)
+        pools = bootstrap.create_bootstrap_sampler(df)
+        digests = {f: digest(a) for f, a in zip(pools._fields, pools)}
+        log(f"engine modes: pools {[tuple(a.shape) for a in pools]}, "
+            f"counts {pools.a_count.tolist()} / {pools.b_count.tolist()}, "
+            f"{time.perf_counter() - t0:.3f} s; digests equal the JAX "
+            f"package's: {digests == ENGINE_POOL_DIGESTS}")
+        assert digests == ENGINE_POOL_DIGESTS, digests
+
+        # (1) The legacy run and its sampled post-tax tables.
+        reset(counters)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        dev_ms = {}
+        t0 = time.perf_counter()
+        with device_clock(dev_ms, "gumbel", rng, "gumbel"):
+            arrays = mc_runner.run_monte_carlo(
+                model, years, num_simulations=ENGINE_N, seed=2,
+                chunk_size=ENGINE_N, engine_mode="legacy_hybrid",
+                bootstrap_pools=pools, progress=False, device="cuda")
+        wall = time.perf_counter() - t0
+        # One [B, N] draw a pool for each of the (sim + buf) // 21 + 2
+        # segments.
+        words = (((sim + buf) // cfg.BOOTSTRAP_BLOCK_MIN + 2) * ENGINE_N
+                 * (pools.a_ret.shape[1] + pools.b_ret.shape[1]))
+        run_launches = read(counters)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        stages = {}
+        t0 = time.perf_counter()
+        post = reporting.sampled_post_tax_tables(
+            model, torch.as_tensor(arrays.final_wealth, device="cuda"),
+            years, ENGINE_N, 2, None, "legacy_hybrid", "offset", buf, True,
+            (10, 50, 90), bootstrap_pools=pools, device="cuda",
+            stage_seconds=stages)
+        torch.cuda.synchronize()
+        post_wall = time.perf_counter() - t0
+        launches = read(counters)
+        log(f"engine modes (1): legacy_hybrid run_monte_carlo {ENGINE_N} x "
+            f"{years}y: wall {wall:.3f} s, "
+            f"{ENGINE_N * years * 252 / wall:.6e} trial-days/s, peak device "
+            f"memory {peak:.2f} GiB, launches {run_launches}; its Gumbel "
+            f"draws {dev_ms['gumbel'] / 1e3:.3f} s on the card (CUDA events; "
+            f"{words:.6e} words, {words / dev_ms['gumbel'] * 1e3:.6e} "
+            f"words/s); sampled "
+            f"post-tax tables (pools carried): {post_wall:.3f} s, stages "
+            f"{json.dumps(stages)}; launches of the path {launches}")
+        fw = arrays.final_wealth.astype(np.float64)
+        assert np.isfinite(fw).all() and arrays.valid.mean() > 0
+        assert run_launches["strategies"] == 1, run_launches
+        assert launches["sort_bridge"] >= 1 and launches["wash"] >= 1
+        for k in ("joint", "window", "window_tiles", "compose_strategies",
+                  "compose", "gbm"):
+            assert launches[k] == 0, launches
+        assert len(post) == 13
+        for sid, e in post.items():
+            assert all(np.isfinite(v) for v in e["wealth"].values()), sid
+            assert np.isfinite(e["median_tax"]) and e["median_tax"] >= 0
+        head = slice(0, 1024)
+        ints = {"start_offset": int(arrays.start_offset[head].sum()),
+                "regime_high_days": int(arrays.regime_high_days[head].sum())}
+        p50 = np.median(fw[head, :3], 0)
+        prel = np.abs(p50 / np.asarray(ENGINE_LEGACY_S123_P50) - 1)
+        flips = engine_plans(model_t, pools, ENGINE_PLAN_TRIALS, sim, buf)
+        log(f"engine modes (1) vs the JAX package: first 1,024 trials' "
+            f"integer sums {ints} (JAX {ENGINE_LEGACY_INT_SUMS}); S1-S3 "
+            f"median rel diff {prel.tolist()} (bound {ENGINE_P50_RTOL}); "
+            f"block-row flips (float32 ties) in {ENGINE_PLAN_TRIALS} "
+            f"trials: pool A {flips[0]}, pool B {flips[1]}; post-tax S7 "
+            f"p50 {post['S7']['wealth']['p50']:.2f}, median tax "
+            f"{post['S7']['median_tax']:.2f}")
+        assert ints == ENGINE_LEGACY_INT_SUMS, ints
+        assert prel.max() < ENGINE_P50_RTOL, prel
+        assert max(flips) <= 2, flips
+        del arrays, post
+        torch.cuda.empty_cache()
+
+        # (2) The results list under SIM_ENGINE_MODE="legacy_hybrid".
+        saved = cfg.SIM_ENGINE_MODE
+        cfg.SIM_ENGINE_MODE = "legacy_hybrid"
+        try:
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()):
+                res = mc_runner.parallel_monte_carlo_fixed(
+                    list(cfg.STRATEGY_INDEX), 10, model, historical_df=df,
+                    num_simulations=200, seed=0, device="cuda")
+            secs = time.perf_counter() - t0
+        finally:
+            cfg.SIM_ENGINE_MODE = saved
+        fw10 = np.array([[r["Final_Wealth"] for r in res[s]]
+                         for s in cfg.STRATEGY_INDEX])
+        assert np.isfinite(fw10).all() and fw10.shape == (19, 200)
+        assert all("Trade_List" in r for r in res["S7"])
+        assert res["S1"][0]["Metadata"]["model_version"] == "legacy_hybrid"
+        log(f"engine modes (2): parallel_monte_carlo_fixed 200 x 10y "
+            f"(legacy_hybrid, trade lists attached): {secs:.3f} s; S1-S3 "
+            f"medians {np.median(fw10[:3], 1).tolist()}")
+
+    # (3) The per-trial institutional engine and the XLA-only routes.
+    rows = torch.arange(1024, device="cuda")
+    ids, anti = rows // 2, rows % 2 == 1
+    key = rng.key(2, "cuda")
+    timings = {}
+
+    def timed_path(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        p = fn()
+        torch.cuda.synchronize()
+        timings[name] = time.perf_counter() - t0
+        assert bool(torch.isfinite(p.etf_ret).all()), name
+        return p
+
+    def stats(p):
+        n, d = ENGINE_PATH_TRIALS, ENGINE_PATH_DAYS
+        etf = p.etf_ret[:, :d, :n].double()
+        return (torch.log1p(etf).sum(1).t().cpu().numpy(),
+                p.vix[:d, :n].double().sum(0).cpu().numpy())
+
+    dev_ms = {}
+    with device_clock(dev_ms, "per_trial_draws", pe, "draw_innovations"), \
+            device_clock(dev_ms, "per_trial_joint_day_loop", pe,
+                         "simulate_joint_and_vix"):
+        per_trial = timed_path("per_trial_generate_paths_batch", lambda:
+                               pe.generate_paths_batch(model_t, key, ids,
+                                                       anti, sim))
+    timings.update({k: v / 1e3 for k, v in dev_ms.items()})
+    off = timed_path("joint_kernel_off_10y", lambda:
+                     pb.generate_paths_batched(
+                         model_t, key, ids, anti, ENGINE_OFF_YEARS * 252,
+                         joint_kernel="off"))
+    # fast_draws=False is the per-trial engine batched: held bit for bit to
+    # the per-trial call over 1 year (its day loops set its time), the one
+    # rerun of the per-trial call.
+    same = timed_path("fast_draws_false_1y", lambda: pb.generate_paths_batched(
+        model_t, key, ids, anti, 252, fast_draws=False))
+    ref1 = timed_path("per_trial_1y", lambda: pe.generate_paths_batch(
+        model_t, key, ids, anti, 252))
+    bitwise = all(torch.equal(getattr(ref1, f), getattr(same, f))
+                  for f in ("etf_ret", "vix", "spy_ret", "regime"))
+    del same, ref1
+    errs = {}
+    for name, p, lg_ref, vix_ref in (
+            ("per_trial", per_trial, ENGINE_PER_TRIAL_LOG_GROWTH,
+             ENGINE_PER_TRIAL_VIX_SUM),
+            ("off", off, ENGINE_OFF_LOG_GROWTH, ENGINE_OFF_VIX_SUM)):
+        lg, vs = stats(p)
+        errs[name] = (float(np.abs(lg - np.asarray(lg_ref)).max()),
+                      float(np.abs(vs / np.asarray(vix_ref) - 1).max()))
+    log(f"engine modes (3): 1,024-trial paths (30 y unless named), seconds "
+        f"(the per-trial call's draws and joint day loop: CUDA events) "
+        f"{json.dumps(timings)}; fast_draws=False bitwise the per-trial "
+        f"call (1 y): {bitwise}; first {ENGINE_PATH_TRIALS} trials' first "
+        f"{ENGINE_PATH_DAYS} days vs the JAX package (max |log-growth "
+        f"diff|, max VIX-sum rel diff): {errs} (bounds "
+        f"{ENGINE_PATH_BOUNDS})")
+    assert bitwise
+    assert not torch.equal(per_trial.spy_ret[:, 0], per_trial.spy_ret[:, 1])
+    for name, (e_lg, e_vix) in errs.items():
+        assert e_lg < ENGINE_PATH_BOUNDS[0], (name, errs)
+        assert e_vix < ENGINE_PATH_BOUNDS[1], (name, errs)
+    del per_trial, off
+
+    # (4) The diagnostics.
+    t0 = time.perf_counter()
+    worst = {}
+    rtol, atol = ENGINE_DIAG_BOUNDS
+    for name, fn in (("pipeline", diagnose.diagnose_pipeline),
+                     ("letf_drag", diagnose.diagnose_letf_drag),
+                     ("tqqq_detailed", diagnose.diagnose_tqqq_detailed)):
+        got = fn(**ENGINE_DIAG_KW[name], device="cuda")
+        ref = ENGINE_DIAGNOSE[name]
+        assert sorted(got) == sorted(ref), name
+        for k, v in ref.items():
+            err = abs(got[k] - v)
+            worst[f"{name}.{k}"] = err
+            assert np.isfinite(got[k]) and err <= atol + rtol * abs(v), (
+                name, k, got[k], v)
+    top = sorted(worst.items(), key=lambda kv: -kv[1])[:3]
+    log(f"engine modes (4): the three diagnostics on the card "
+        f"{time.perf_counter() - t0:.3f} s; largest differences from the "
+        f"JAX package's: {top}")
+    log(f"engine modes phase: {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def phase_validation(counters):
     """The two invariants of the validation battery on the card: the
     zero-drift drag through K3 (10,000 paths, within 1.5%), the flat-market
@@ -3012,9 +3342,12 @@ def device_profile(fn):
 
 
 def phase_profile(model):
-    """Device time by kernel for one 16,384 x 30y pre-tax report chunk,
-    and for the post-tax part of a one-chunk sampled report (its replay,
-    bridge and tax), with the device's busy share of the wall."""
+    """Device time by kernel for one 16,384 x 30y pre-tax report chunk
+    (torch.profiler), with the device's busy share of the wall; then the
+    post-tax part of a one-chunk sampled report (its replay, bridge and
+    tax) by stage, with the device's busy share as nvidia-smi samples it
+    (torch.profiler spends minutes reducing the ~10^6 launches of its day
+    loops)."""
     from letf_tpu_torch import reporting
     from letf_tpu_torch.parallel import mc_runner
 
@@ -3032,15 +3365,20 @@ def phase_profile(model):
     run = mc_runner._Run(model, 30, B_CHUNK, 3, chunk_size=B_CHUNK)
     rows = np.arange(B_CHUNK)
     fw = run.chunk(rows // 2, rows % 2 == 1)["final_wealth"]
-    stages = {}
-    wall_ms, busy_ms, top = device_profile(
-        lambda: reporting.sampled_post_tax_tables(run, fw, 30, (10, 50, 90),
-                                                  stage_seconds=stages))
-    log(f"profile of the post-tax part of a {B_CHUNK} x 30y sampled "
-        f"report: wall {wall_ms:.3f} ms, device busy {busy_ms:.3f} ms "
-        f"({100 * busy_ms / wall_ms:.1f}%), stages (s, under the profiler) "
-        f"{json.dumps(stages)}; by kernel: "
-        + "; ".join(f"{k[:48]} {v:.3f} ms" for k, v in top[:10]))
+    stages, samples = {}, []
+    torch.cuda.synchronize()
+    with busy_samples(samples):
+        t0 = time.perf_counter()
+        reporting.sampled_post_tax_tables(
+            model, fw, 30, B_CHUNK, 3, None, "institutional_v1",
+            run.random_start_method, run.buffer_days, run.use_antithetic,
+            (10, 50, 90), device="cuda", stage_seconds=stages)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    log(f"the post-tax part of a {B_CHUNK} x 30y sampled report: wall "
+        f"{wall:.3f} s, stages (s) {json.dumps(stages)}; device busy "
+        f"(nvidia-smi utilization.gpu, {len(samples)} samples of 100 ms) "
+        f"mean {float(np.mean(samples)) if samples else float('nan'):.1f}%")
 
 
 KERNELS = {   # name -> (source, the TPU kernel it replaces, its path)
@@ -3065,6 +3403,14 @@ KERNELS = {   # name -> (source, the TPU kernel it replaces, its path)
     "wash": ("letf_tpu_torch/csrc/wash.cu", "letf_tpu/ops/pallas_wash.py:107",
              "default_report"),
 }
+
+
+def run_phase(name, fn, *args):
+    """fn(*args), its seconds logged."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    log(f"phase {name}: {time.perf_counter() - t0:.1f} s")
+    return out
 
 
 def main():
@@ -3097,7 +3443,7 @@ def main():
 
     model = default_sim_model()
     model_t = from_numpy(model, "cuda", torch.float32)
-    rec = phase_kernels(model_t, args.quick)
+    rec = run_phase("kernels", phase_kernels, model_t, args.quick)
     if args.quick:
         rec["strategies"] = phase_k4(general_channels(model_t, QUICK["sim"]))
         rec["gbm"] = phase_k6(n=65_536, years=1, reps=2, gate=False)
@@ -3105,23 +3451,27 @@ def main():
         print(json.dumps(info))
         print(smi)
         return
-    rec["gbm"] = phase_k6()
-    phase_small_report(model)
-    phase_general_vs_slab(model_t)
+    rec["gbm"] = run_phase("k6", phase_k6)
+    run_phase("small_report", phase_small_report, model)
+    run_phase("general_vs_slab", phase_general_vs_slab, model_t)
     observe_general_windows()
     ctrs = counters()
-    launches = {"pretax_report": phase_pretax(model, ctrs)}
-    launches["default_report"], rep = phase_main_path(model, ctrs)
-    shared = phase_tax_reference(model, rep)
+    launches = {"pretax_report": run_phase("pretax", phase_pretax, model,
+                                           ctrs)}
+    launches["default_report"], rep = run_phase("main_path", phase_main_path,
+                                                model, ctrs)
+    shared = run_phase("tax_reference", phase_tax_reference, model, rep)
     del rep
     torch.cuda.empty_cache()
-    launches["exact_all"] = phase_exact_all(model, ctrs, shared)
+    launches["exact_all"] = run_phase("exact_all", phase_exact_all, model,
+                                      ctrs, shared)
     torch.cuda.empty_cache()
-    launches["parametric_report"], rec["strategies"] = phase_parametric(
-        model, model_t, ctrs)
-    phase_parametric_small(model)
-    phase_jax_reference(model)
-    launches["calibrated_report"] = phase_calibrated(ctrs, smi)
+    launches["parametric_report"], rec["strategies"] = run_phase(
+        "parametric", phase_parametric, model, model_t, ctrs)
+    run_phase("parametric_small", phase_parametric_small, model)
+    run_phase("jax_reference", phase_jax_reference, model)
+    launches["calibrated_report"] = run_phase("calibrated", phase_calibrated,
+                                              ctrs, smi)
     torch.cuda.empty_cache()
     (launches["analysis"], launches["analysis_replay"],
      analysis_rec) = phase_analysis(ctrs, smi)
@@ -3129,10 +3479,12 @@ def main():
         if r is not None:
             rec[k]["analysis"] = r
     torch.cuda.empty_cache()
-    launches["headline"] = phase_headline(ctrs)
-    phase_validation(ctrs)
-    phase_profile(model)
-    phase_exact_breakdown(model)
+    launches["engine_modes"] = phase_engine_modes(ctrs, smi)
+    torch.cuda.empty_cache()
+    launches["headline"] = run_phase("headline", phase_headline, ctrs)
+    run_phase("validation", phase_validation, ctrs)
+    run_phase("profile", phase_profile, model)
+    run_phase("exact_breakdown", phase_exact_breakdown, model)
     assert "jax" not in sys.modules and "letf_tpu" not in sys.modules
 
     kernels = []

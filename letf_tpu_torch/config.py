@@ -175,11 +175,32 @@ def clear_all_caches() -> None:
         print("All caches cleared")
 
 
-# Engine mode and the parametric generator.
+# Block bootstrap, engine mode and the parametric generator.
+BOOTSTRAP_BLOCK_MIN = 21
+BOOTSTRAP_BLOCK_MAX = 168
+BOOTSTRAP_BLOCK_MEAN = 84
+BOOTSTRAP_BLOCK_SIZE = BOOTSTRAP_BLOCK_MAX
+BOOTSTRAP_MOMENTUM_BIAS_BY_REGIME = {0: 0.54, 1: 0.505}
 STUDENT_T_DF = 5
 BOOTSTRAP_WEIGHT = 0.80
 USE_BLOCK_BOOTSTRAP = True
 SIM_ENGINE_MODE = "institutional_v1"
+
+
+@dataclasses.dataclass(frozen=True)
+class SimulationConfig:
+    """The engine configuration in one object (reference config.py:270-284)."""
+    engine_mode: str
+    use_block_bootstrap: bool
+    bootstrap_weight: float
+
+
+def get_simulation_config() -> SimulationConfig:
+    return SimulationConfig(
+        engine_mode=SIM_ENGINE_MODE,
+        use_block_bootstrap=USE_BLOCK_BOOTSTRAP,
+        bootstrap_weight=float(BOOTSTRAP_WEIGHT),
+    )
 
 # Random start.
 USE_RANDOM_START = True

@@ -15,12 +15,29 @@ Ports of ``letf_tpu/ops/path_batched.py``:
 - ``windowed_chain``: the chain both chunk formulations share --
   start conditions and regime spells, kernel K1 (joint), moment matching,
   and the random-start window (kernel K2/K2', ``window_series``).
-- ``generate_paths_batched`` (``:992``), its kernel route (``:1025-1072``):
-  the chain, then kernel K5 (compose) and ``_finish_path`` (``:962``). The
-  draws are the counter draws of the kernels on every device, keyed by the
-  base trial id, so a replayed trial is the trial whose wealth the report
-  sampled; the TPU's padding of the batch to a multiple of 1024 is not
-  needed (one thread per trial).
+- The XLA-only routes, batch last as the rest of the port:
+  ``chi2_from_normal`` (``:86``), ``t_int_df`` (``:112``),
+  ``draw_innovations_fast`` (``:410``, the fast samplers: chi-square from
+  one normal by its log-quantile Chebyshev fit, integer-df Student-t from
+  uniforms and normals, the spell regime paths) and
+  ``draw_innovations_batched`` (``:40``, the per-trial engine's draws);
+  ``simulate_regime_paths_batched``, ``simulate_joint_and_vix_batched``,
+  ``simulate_stress_batched`` and ``simulate_tracking_error_batched``
+  (``:120``, ``:613``, ``:772``, ``:814``) are the per-trial engine's
+  batched day loops (``ops/path_engine.py``), which already hold their
+  state as ``[B]`` components; ``path_from_innovations_batched``
+  (``:853``).
+- ``generate_paths_batched`` (``:992``): the kernel route
+  (``joint_kernel="auto"``, ``:1025-1072``): the chain, then kernel K5
+  (compose) and ``_finish_path`` (``:962``). The draws are the counter
+  draws of the kernels on every device, keyed by the base trial id, so a
+  replayed trial is the trial whose wealth the report sampled; the TPU's
+  padding of the batch to a multiple of 1024 is not needed (one thread
+  per trial). Without the funding model or the stress channels, K5 gives
+  way to the glue composition on the fast samplers' draws, as the
+  reference's compose kernel does. ``joint_kernel="off"`` runs the fast
+  draws and the torch joint scan; ``fast_draws=False`` the per-trial
+  engine's draws and scan.
 
 Glue runs in the dtype of the converted model tables (utils/device.py);
 the kernels and the path's per-day series are float32.
@@ -287,18 +304,243 @@ def finish_path(etf_ret, tlt, spy, qqq, vix, regime, cash_ret, risk_free,
         path_finite=finite_pre, vix_ok=vix_ok)
 
 
+def _clenshaw(t, c):
+    """Chebyshev series sum c[k] T_k(t) by Clenshaw's recurrence."""
+    b1 = torch.zeros_like(t)
+    b2 = torch.zeros_like(t)
+    for k in range(c.shape[0] - 1, 0, -1):
+        b1, b2 = c[k] + 2.0 * t * b1 - b2, b1
+    return c[0] + t * b1 - b2
+
+
+def chi2_from_normal(z, cheb_coeffs):
+    """Chi-square(nu) draw from one standard normal: exp(cheb(z / zmax)),
+    the Chebyshev fit of log chi2_ppf(Phi(z), nu)
+    (params.chi2_log_quantile_cheb)."""
+    t = torch.clamp(z / tparams.CHI_CHEB_ZMAX, -1.0, 1.0)
+    return torch.exp(_clenshaw(t, cheb_coeffs.to(z.dtype)))
+
+
+def _chisq_int(keys, df: int, n: int, dtype):
+    """Exact chi-square with integer df per key [B, 2]: -2 log of the
+    product of df // 2 uniforms on [1e-12, 1), plus a squared normal for
+    odd df. Returns [B, n]."""
+    k_u, k_n = rng.split(keys, 2).unbind(1)
+    out = torch.zeros((keys.shape[0], n), dtype=dtype, device=keys.device)
+    k_even = df // 2
+    if k_even > 0:
+        u = rng.uniform(k_u, k_even * n, dtype, minval=1e-12)
+        out = -2.0 * torch.log(u).reshape(-1, k_even, n).sum(1)
+    if df % 2 == 1:
+        z = rng.normal(k_n, n, dtype)
+        out = out + z * z
+    return out
+
+
+def t_int_df(keys, df: int, n: int, dtype=torch.float32):
+    """Student-t with integer df per key [B, 2]: z / sqrt(chisq_df / df),
+    ``[B, n]`` (path_batched.t_int_df)."""
+    k_z, k_c = rng.split(keys, 2).unbind(1)
+    z = rng.normal(k_z, n, dtype)
+    c = _chisq_int(k_c, df, n, dtype)
+    return z * torch.sqrt(df / torch.clamp_min(c, 1e-12))
+
+
+def draw_innovations_fast(model, run_key, trial_ids, antithetic,
+                          sim_days: int, buffer_days: int = 0,
+                          random_start_method: str = "offset",
+                          anchors=None, joint_draws: bool = True,
+                          aux_draws: bool = True,
+                          max_spells: int | None = None):
+    """The fast route's draws (path_batched.draw_innovations_fast), the
+    port's batch-last ``Innovations``: the start conditions, the spell
+    regime paths, and the same streams as the per-trial engine through
+    cheaper samplers: chi-square from one normal a day
+    (``chi2_from_normal`` of the regime's coefficients), integer-df
+    Student-t for the jump sizes and the tracking error (``t_int_df``).
+    ``joint_draws=False`` leaves the joint fields None (K1 draws them) and
+    ``aux_draws=False`` the stress and tracking-error fields (K5 does)."""
+    from letf_tpu_torch.ops.path_engine import Innovations
+
+    dt = model.regime.p_stay.dtype
+    T = sim_days + buffer_days
+    B = trial_ids.shape[0]
+    tk = rng.trial_key(run_key, trial_ids)
+    sc = start_conditions(model, run_key, trial_ids, buffer_days,
+                          random_start_method, anchors, dt)
+    regime_full = simulate_regime_paths_spell(
+        model, rng.stream(tk, rng.REGIME), sc.start_regime, T,
+        max_spells=max_spells)
+    eps = u_chi = vix_noise = irx_noise = None
+    if joint_draws:
+        sign = torch.where(antithetic, -1.0, 1.0).to(dt)
+        eps = (sign[:, None] * rng.normal(rng.stream(tk, rng.JOINT_EPS),
+                                          3 * T, dt)).reshape(
+            B, T, 3).permute(2, 1, 0).contiguous()
+        z_chi = rng.normal(rng.stream(tk, rng.JOINT_CHI), T, dt).t()
+        chi = torch.stack([chi2_from_normal(z_chi, c)
+                           for c in model.joint.chi_cheb])
+        u_chi = chi.gather(0, regime_full.long()[None])[0]
+        vix_noise = rng.normal(rng.stream(tk, rng.VIX_NOISE), T,
+                               dt).t().contiguous()
+        irx_noise = rng.normal(rng.stream(tk, rng.IRX_NOISE), T,
+                               dt).t().contiguous()
+    stress_norms = u_jump = t_abs = jump_sign = te_draws = None
+    if aux_draws:
+        stress_norms = rng.normal(
+            rng.stream(tk, rng.STRESS_NORM), 2 * sim_days, dt).reshape(
+            B, sim_days, 2).permute(2, 1, 0).contiguous()
+        kj = rng.split(rng.stream(tk, rng.STRESS_JUMP), 3)
+        u_jump = rng.uniform(kj[:, 0], sim_days, dt).t().contiguous()
+        t_abs = torch.abs(t_int_df(kj[:, 1], 5, sim_days,
+                                   dt)).t().contiguous()
+        jump_sign = torch.where(rng.uniform(kj[:, 2], sim_days, dt) < 0.5,
+                                -1.0, 1.0).to(dt).t().contiguous()
+        k_te = rng.stream(tk, rng.TRACKING)
+        static_dfs = cfg.asset_table().te_df
+        te = [None] * cfg.N_ASSETS
+        for df in sorted(set(int(v) for v in static_dfs)):
+            cols = [a for a in range(cfg.N_ASSETS) if static_dfs[a] == df]
+            d = t_int_df(rng.fold_in(k_te, df), df, sim_days * len(cols),
+                         dt).reshape(B, sim_days, len(cols))
+            for j, a in enumerate(cols):
+                te[a] = d[:, :, j].t()
+        te_draws = torch.stack(te).contiguous()
+    return Innovations(
+        start_offset=sc.start_offset, start_regime=sc.start_regime,
+        initial_vix=sc.initial_vix, regime_full=regime_full, eps=eps,
+        u_chi=u_chi, vix_noise=vix_noise, irx_noise=irx_noise,
+        stress_norms=stress_norms, u_jump=u_jump, t_abs=t_abs,
+        jump_sign=jump_sign, te_draws=te_draws,
+        mode_key=rng.stream(tk, rng.BOOTSTRAP))
+
+
+def draw_innovations_batched(model, run_key, trial_ids, antithetic,
+                             sim_days: int, buffer_days: int = 0,
+                             random_start_method: str = "offset",
+                             anchors=None):
+    """The per-trial engine's draws of the batch (the JAX version's vmap of
+    path_engine.draw_innovations)."""
+    from letf_tpu_torch.ops import path_engine
+
+    return path_engine.draw_innovations(
+        model, run_key, trial_ids, antithetic, sim_days, buffer_days,
+        random_start_method, anchors, engine_mode="institutional_v1")
+
+
+def simulate_regime_paths_batched(model, keys, start_regime,
+                                  total_days: int):
+    """[T, B] regime paths of the dwell scan: the candidates of every day
+    precomputed, the loop only selects (path_engine.simulate_regime_path,
+    which the batched formulation is)."""
+    from letf_tpu_torch.ops import path_engine
+
+    return path_engine.simulate_regime_path(model, keys, start_regime,
+                                            total_days)
+
+
+def simulate_joint_and_vix_batched(model, regime, eps, u_chi, vix_noise,
+                                   moment_matching: bool = True):
+    """path_engine.simulate_joint_and_vix: its state is already ``[B]``
+    components (regime [T, B], eps [3, T, B])."""
+    from letf_tpu_torch.ops import path_engine
+
+    return path_engine.simulate_joint_and_vix(model, regime, eps, u_chi,
+                                              vix_noise, moment_matching)
+
+
+def simulate_stress_batched(model, regime, vix, norms, u_jump, t_abs):
+    """path_engine.simulate_stress ([S, B] day loop)."""
+    from letf_tpu_torch.ops import path_engine
+
+    return path_engine.simulate_stress(model, regime, vix, norms, u_jump,
+                                       t_abs)
+
+
+def simulate_tracking_error_batched(model, regime, vix, underlying,
+                                    t_draws):
+    """path_engine.simulate_tracking_error ([A, S, B] day loop)."""
+    from letf_tpu_torch.ops import path_engine
+
+    return path_engine.simulate_tracking_error(model, regime, vix,
+                                               underlying, t_draws)
+
+
+def path_from_innovations_batched(model, innov, sim_days: int,
+                                  moment_matching: bool = True,
+                                  use_funding_model: bool = True,
+                                  use_stress: bool = True) -> PathOutputs:
+    """The institutional path of batch-last innovations
+    (path_batched.path_from_innovations_batched): ``path_engine``'s stages,
+    the joint scan (``mode_returns``), the IRX, the random-start window
+    (``window_series``, the K2' kernel on the card) and ``compose_path``.
+    The reference's ``counter_ctx`` (its TPU compose kernel) is
+    ``generate_paths_batched``'s kernel route here."""
+    from letf_tpu_torch.ops import path_engine
+
+    regime_full = innov.regime_full
+    spy, qqq, tlt, vix_full = path_engine.mode_returns(
+        model, innov, "institutional_v1", moment_matching=moment_matching)
+    irx_full = torch.clamp(model.irx_base[regime_full.long()]
+                           + 0.5 * innov.irx_noise, 0.0, 15.0)
+    chans = window_series([spy, qqq, tlt, vix_full, irx_full,
+                           regime_full.to(spy.dtype)], innov.start_offset,
+                          sim_days)
+    return path_engine.compose_path(model, innov, *chans[:5],
+                                    chans[5].to(torch.int32),
+                                    use_funding_model, use_stress)
+
+
 def generate_paths_batched(model, run_key, trial_ids, antithetic,
                            sim_days: int, buffer_days: int = 0,
                            random_start_method: str = "offset",
-                           moment_matching: bool = True, anchors=None,
+                           moment_matching: bool = True,
+                           use_funding_model: bool = True,
+                           use_stress: bool = True,
+                           fast_draws: bool = True, anchors=None,
+                           joint_kernel: str = "auto",
                            max_spells: int | None = None) -> PathOutputs:
-    """The general [S, B] path (institutional_v1): ``windowed_chain``, then
-    kernel K5 (stress, funding, leverage and tracking error for all six
-    assets) and ``finish_path``."""
+    """The general [S, B] path (institutional_v1). ``joint_kernel="auto"``:
+    ``windowed_chain`` (K1, K2'), then kernel K5 (stress, funding, leverage
+    and tracking error for all six assets) and ``finish_path``; without
+    the funding model or the stress channels, the glue composition on the
+    fast samplers' stress and tracking-error draws. ``"off"``: the fast
+    draws and the torch joint scan. ``fast_draws=False``: the per-trial
+    engine's draws and scan, equal to ``path_engine.generate_paths_batch``
+    of the institutional mode."""
+    if joint_kernel not in ("auto", "off"):
+        raise ValueError(f"joint_kernel must be 'auto' or 'off', got "
+                         f"{joint_kernel!r}")
+    if not fast_draws:
+        innov = draw_innovations_batched(model, run_key, trial_ids,
+                                         antithetic, sim_days, buffer_days,
+                                         random_start_method, anchors)
+        return path_from_innovations_batched(model, innov, sim_days,
+                                             moment_matching,
+                                             use_funding_model, use_stress)
+    if joint_kernel == "off":
+        innov = draw_innovations_fast(model, run_key, trial_ids, antithetic,
+                                      sim_days, buffer_days,
+                                      random_start_method, anchors,
+                                      max_spells=max_spells)
+        return path_from_innovations_batched(model, innov, sim_days,
+                                             moment_matching,
+                                             use_funding_model, use_stress)
     sc, ids32, seed_words, chans = windowed_chain(
         model, run_key, trial_ids, antithetic, sim_days, buffer_days,
         random_start_method, anchors, moment_matching, max_spells)
     _, _, tlt, vix, irx, regime = chans
+    if not (use_stress and use_funding_model):
+        from letf_tpu_torch.ops import path_engine
+
+        innov = draw_innovations_fast(model, run_key, trial_ids, antithetic,
+                                      sim_days, buffer_days,
+                                      random_start_method, anchors,
+                                      joint_draws=False,
+                                      max_spells=max_spells)
+        return path_engine.compose_path(model, innov, *chans[:5],
+                                        regime.to(torch.int32),
+                                        use_funding_model, use_stress)
     etf, spy_a, qqq_a, cash, jc, ls, cs = compose_generate(
         tparams.pack_stress_params(model), tparams.pack_asset_params(model),
         ids32, seed_words, *chans)

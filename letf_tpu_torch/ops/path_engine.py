@@ -1,29 +1,35 @@
-"""The per-trial path engine in the parametric mode, batched.
+"""The per-trial path engine, batched: every engine mode.
 
 Port of ``letf_tpu/ops/path_engine.py`` (the JAX version vmaps one trial's
 scans over the batch; here the batch is the last axis, ``[T, B]``):
 
 - ``draw_innovations``: every random input a trial consumes, from its
-  threefry streams (``ops/rng.py``, the ``jax.random`` samplers). Only the
-  streams the requested mode consumes are drawn; streams are keyed by
+  threefry streams (``ops/rng.py``, the ``jax.random`` samplers), for the
+  engine mode (keyword ``engine_mode``, default the reference's
+  ``institutional_v1``, which draws every stream). Streams are keyed by
   ``fold_in`` of the stream id, so skipping the joint model's normals and
-  chi-square draws (parametric mode) changes no other draw.
+  chi-square draws (the parametric and legacy modes) changes no other draw.
 - ``simulate_regime_path``: the semi-Markov dwell scan (``:116-134``), one
   day step over the batch.
-- ``generate_returns_parametric`` (``:474-491``),
-  ``simulate_vix_given_returns`` (``:449-471``), ``simulate_stress``,
-  ``borrow_spread_series``, ``compose_letf_returns`` and
-  ``simulate_tracking_error`` (``:214-316``), and ``path_from_innovations``
-  (``:518-622``), which takes an ``Innovations`` so tests can feed both
-  packages the same draws.
-- ``generate_paths_batch``: draws + path.
+- ``simulate_joint_and_vix`` (``:141-211``): the institutional model's
+  multivariate-t with GARCH/DCC-lite, a closed-form 3x3 Cholesky and the
+  chi-square scale, fused with the VIX recursion; a torch day loop over
+  ``[3, T, B]`` with every day's parameters gathered beforehand.
+- ``generate_returns_parametric`` (``:474-491``), ``blend_engine_noise``
+  (``:494``) on the block bootstrap's series (``models/bootstrap.py``,
+  ``legacy_hybrid`` with pools), ``simulate_vix_given_returns``
+  (``:449-471``), ``simulate_stress``, ``borrow_spread_series``,
+  ``compose_letf_returns`` and ``simulate_tracking_error`` (``:214-316``),
+  and ``path_from_innovations`` (``:518-622``), which takes an
+  ``Innovations`` so tests can feed both packages the same draws.
+- ``generate_path`` (one trial), ``generate_paths_batch`` (draws + path),
+  and ``draw_innovations_jit`` / ``path_from_innovations_jit``, the
+  reference's names for the two halves.
 
 None of these is a TPU kernel in the JAX package (they are XLA scans); here
 they are torch day loops whose per-day work is only the true recurrence,
-everything else computed for all days at once. The per-trial institutional
-mode (``simulate_joint_and_vix`` with chi-square mixing) and the block
-bootstrap raise, naming their ROADMAP items; the production institutional
-path is ``ops/path_batched.py``.
+everything else computed for all days at once. The production
+institutional path is ``ops/path_batched.py``'s kernel route.
 
 Glue runs in the dtype of the converted model tables (float64 on the CPU,
 float32 on the card), as the JAX version runs in the ambient precision.
@@ -46,31 +52,31 @@ from letf_tpu_torch.ops.path_batched import (
 )
 
 _A = cfg.N_ASSETS
+ENGINE_MODES = ("institutional_v1", "legacy_hybrid", "parametric")
 # Cholesky factors of the parametric mode's regime correlations
-# (path_engine.py:479-482).
+# (path_engine.py:479-482) and of the engine's bootstrap noise blend
+# (:502-505).
 CHOL_LOW = np.linalg.cholesky(np.array(
     [[1.0, 0.85, -0.15], [0.85, 1.0, -0.10], [-0.15, -0.10, 1.0]]))
 CHOL_HIGH = np.linalg.cholesky(np.array(
     [[1.0, 0.92, -0.45], [0.92, 1.0, -0.30], [-0.45, -0.30, 1.0]]))
+CHOL_BLEND_LOW = np.linalg.cholesky(np.array(
+    [[1.0, 0.88, -0.18], [0.88, 1.0, -0.12], [-0.18, -0.12, 1.0]]))
+CHOL_BLEND_HIGH = np.linalg.cholesky(np.array(
+    [[1.0, 0.94, -0.42], [0.94, 1.0, -0.30], [-0.42, -0.30, 1.0]]))
 
 
-def _unported(engine_mode: str, pools) -> Optional[str]:
-    if engine_mode == "institutional_v1":
-        return ("the per-trial institutional mode (simulate_joint_and_vix "
-                "with chi-square mixing) is not ported; the production "
-                "institutional path is ops/path_batched.py (ROADMAP "
-                "section 1, item 11)")
-    if engine_mode == "legacy_hybrid" and pools is not None:
-        return ("legacy_hybrid with bootstrap pools is the block bootstrap, "
-                "ROADMAP section 1 item 15, not ported yet")
-    if engine_mode not in ("parametric", "legacy_hybrid"):
-        return f"unknown engine_mode {engine_mode!r}"
-    return None
+def _check_mode(engine_mode: str) -> None:
+    if engine_mode not in ENGINE_MODES:
+        raise ValueError(f"engine_mode must be one of {ENGINE_MODES}, got "
+                         f"{engine_mode!r}")
 
 
 class Innovations(NamedTuple):
     """Every draw of a batch, batch last. ``eps``/``u_chi`` (the joint
-    model's) stay None in the parametric mode."""
+    model's) stay None outside the institutional mode; the fast route
+    leaves the fields None that a kernel draws in-kernel
+    (``path_batched.draw_innovations_fast``)."""
     start_offset: torch.Tensor    # [B]
     start_regime: torch.Tensor    # [B] int32
     initial_vix: torch.Tensor     # [B]
@@ -168,17 +174,27 @@ def _te_draws(k_te, sim_days: int, dt):
     return torch.stack(out)
 
 
-def draw_innovations(model, run_key, trial_ids, antithetic, sim_days: int,
+def _chi_draws(model, k_chi, regime_full, T: int, dt):
+    """Chi-square(nu_r) mixing draws [T, B]: 2 * gamma(nu_r / 2) of the key
+    fold_in(k_chi, r) for every regime r, picked by the regime path."""
+    nus = model.joint.nu.tolist()
+    chis = torch.stack([
+        2.0 * rng.gamma(rng.fold_in(k_chi, r), nus[r] / 2.0, T, dt).t()
+        for r in range(len(nus))])                             # [R, T, B]
+    return chis.gather(0, regime_full.long()[None])[0]
+
+
+def draw_innovations(model, run_key, trial_id, antithetic, sim_days: int,
                      buffer_days: int = 0,
-                     random_start_method: str = "offset", anchors=None,
-                     engine_mode: str = "parametric",
-                     bootstrap_pools=None) -> Innovations:
-    """The draws of trials ``trial_ids`` [B] (path_engine.draw_innovations)
-    for ``engine_mode``. ``model``: the port's torch SimModel on the
-    trials' device."""
-    why = _unported(engine_mode, bootstrap_pools)
-    if why:
-        raise NotImplementedError(why)
+                     random_start_method: str = "offset", anchors=None, *,
+                     engine_mode: str = "institutional_v1") -> Innovations:
+    """The draws of the trials ``trial_id`` [B] and ``antithetic`` [B]
+    (path_engine.draw_innovations, batched) for ``engine_mode``: the
+    institutional mode's joint normals (negated for antithetic trials) and
+    chi-square draws only in that mode. ``model``: the port's torch
+    SimModel on the trials' device."""
+    _check_mode(engine_mode)
+    trial_ids = trial_id
     dt = model.regime.p_stay.dtype
     T = sim_days + buffer_days
     tk = rng.trial_key(run_key, trial_ids)
@@ -187,6 +203,14 @@ def draw_innovations(model, run_key, trial_ids, antithetic, sim_days: int,
     regime_full = simulate_regime_path(model, rng.stream(tk, rng.REGIME),
                                        sc.start_regime, T)
     B = trial_ids.shape[0]
+    eps = u_chi = None
+    if engine_mode == "institutional_v1":
+        sign = torch.where(antithetic, -1.0, 1.0).to(dt)
+        eps = (sign[:, None] * rng.normal(rng.stream(tk, rng.JOINT_EPS),
+                                          3 * T, dt)).reshape(
+            B, T, 3).permute(2, 1, 0).contiguous()
+        u_chi = _chi_draws(model, rng.stream(tk, rng.JOINT_CHI), regime_full,
+                           T, dt).contiguous()
     vix_noise = rng.normal(rng.stream(tk, rng.VIX_NOISE), T, dt).t()
     irx_noise = rng.normal(rng.stream(tk, rng.IRX_NOISE), T, dt).t()
     stress_norms = rng.normal(rng.stream(tk, rng.STRESS_NORM), 2 * sim_days,
@@ -199,8 +223,8 @@ def draw_innovations(model, run_key, trial_ids, antithetic, sim_days: int,
     te_draws = _te_draws(rng.stream(tk, rng.TRACKING), sim_days, dt)
     return Innovations(
         start_offset=sc.start_offset, start_regime=sc.start_regime,
-        initial_vix=sc.initial_vix, regime_full=regime_full, eps=None,
-        u_chi=None, vix_noise=vix_noise.contiguous(),
+        initial_vix=sc.initial_vix, regime_full=regime_full, eps=eps,
+        u_chi=u_chi, vix_noise=vix_noise.contiguous(),
         irx_noise=irx_noise.contiguous(),
         stress_norms=stress_norms.contiguous(), u_jump=u_jump.contiguous(),
         t_abs=t_abs.contiguous(), jump_sign=jump_sign.contiguous(),
@@ -208,9 +232,113 @@ def draw_innovations(model, run_key, trial_ids, antithetic, sim_days: int,
         mode_key=rng.stream(tk, rng.BOOTSTRAP))
 
 
+def _chol3(c00, c01, c02, c11, c12, c22):
+    """Closed-form lower Cholesky factor of a 3x3 SPD matrix, componentwise
+    (path_engine._chol3): (l00, l10, l20, l11, l21, l22)."""
+    eps = 1e-18
+    l00 = torch.sqrt(torch.clamp_min(c00, eps))
+    l10 = c01 / l00
+    l20 = c02 / l00
+    l11 = torch.sqrt(torch.clamp_min(c11 - l10 * l10, eps))
+    l21 = (c12 - l20 * l10) / l11
+    l22 = torch.sqrt(torch.clamp_min(c22 - l20 * l20 - l21 * l21, eps))
+    return l00, l10, l20, l11, l21, l22
+
+
+_PAIRS = ((0, 0), (0, 1), (0, 2), (1, 1), (1, 2), (2, 2))
+
+
+def simulate_joint_and_vix(model, regime_path, eps, u_chi, vix_noise,
+                           moment_matching: bool = True):
+    """The institutional model's returns and VIX (path_engine.
+    simulate_joint_and_vix): regime-conditional multivariate-t with a GARCH
+    variance and a DCC-lite correlation per stream (reset to the regime's
+    long-run values on day 0, blended 10/90 on a regime switch), the
+    covariance's closed-form Cholesky factor times the day's normals, the
+    chi-square scale sqrt(nu / u), returns clipped to [-0.95, 4]; the VIX
+    AR(1) with downside jumps on the same day's SPY shock. ``regime_path``
+    [T, B], ``eps`` [3, T, B], ``u_chi`` and ``vix_noise`` [T, B]. Returns
+    (x [3, T, B], vix [T, B]); moment matching moves each stream's mean 10%
+    of the way to the regime-average theoretical mean."""
+    J, V, reg = model.joint, model.vix, model.regime
+    r = regime_path.long()
+    T = r.shape[0]
+    # Every day's parameters, gathered once: [T, B] (and [3, T, B]).
+    mu = J.mu[r].permute(2, 0, 1)
+    lv = J.long_var[r].permute(2, 0, 1)
+    rb = [J.rbar[:, i, j][r] for i, j in _PAIRS]
+    alpha, beta = J.garch_alpha[r], J.garch_beta[r]
+    one_ab = 1 - alpha - beta
+    ad, bd = J.dcc_a[r], J.dcc_b[r]
+    one_abd = 1 - ad - bd
+    scale = torch.sqrt(J.nu[r] / torch.clamp_min(u_chi, 1e-12))
+    denom = torch.clamp_min(reg.daily_std[r], 1e-4)
+    vphi, vthr, vjs = V.phi[r], V.jump_threshold[r], V.jump_scale[r]
+    vmean = (1 - vphi) * V.target[r]
+    vnoise = V.noise_std[r] * vix_noise
+    switch = torch.zeros_like(r, dtype=torch.bool)
+    switch[1:] = r[1:] != r[:-1]
+
+    x = torch.empty_like(eps)
+    vix = torch.empty_like(vix_noise)
+    h = q = z = v = None
+    for t in range(T):
+        if t == 0:
+            h = lv[:, 0]
+            q = [c[0] for c in rb]
+        else:
+            zz = [z[i] * z[j] for i, j in _PAIRS]
+            g = torch.clamp_min(one_ab[t] * lv[:, t]
+                                + alpha[t] * (z * z) * h + beta[t] * h,
+                                1e-10)
+            h = torch.where(switch[t], 0.10 * lv[:, t] + 0.90 * h, g)
+            q = [torch.where(switch[t], 0.10 * c[t] + 0.90 * qk,
+                             one_abd[t] * c[t] + ad[t] * zk + bd[t] * qk)
+                 for c, qk, zk in zip(rb, q, zz)]
+        d = [torch.sqrt(torch.clamp_min(q[k], 1e-12)) for k in (0, 3, 5)]
+        sh = torch.sqrt(h)
+        cov = [(sh[i] * sh[j]) * (q[k] / (d[i] * d[j]))
+               for k, (i, j) in enumerate(_PAIRS)]
+        l00, l10, l20, l11, l21, l22 = _chol3(*cov)
+        e = eps[:, t]
+        zc = torch.stack([l00 * e[0], l10 * e[0] + l11 * e[1],
+                          l20 * e[0] + l21 * e[1] + l22 * e[2]])
+        xt = torch.clamp(mu[:, t] + zc * scale[t], -0.95, 4.0)
+        z = (xt - mu[:, t]) / torch.sqrt(torch.clamp_min(h, 1e-10))
+        x[:, t] = xt
+        if t == 0:
+            v = V.base[r[0]]
+        else:
+            shock = torch.clamp_min(-xt[0], 0.0) / denom[t]
+            vjump = vjs[t] * torch.clamp_min(shock - vthr[t], 0.0)
+            v = torch.clamp_min(vphi[t] * v + vmean[t] + vjump + vnoise[t],
+                                10.0)
+        vix[t] = v
+    if moment_matching:
+        theo = J.theo_mean.to(x.dtype)[:, None, None]
+        x = x + (theo - x.mean(dim=1, keepdim=True)) * 0.1
+    return x, vix
+
+
 # ---------------------------------------------------------------------------
 # Returns and VIX
 # ---------------------------------------------------------------------------
+
+def cholesky_mix(z, high, chol_low, chol_high):
+    """Day-wise correlation of independent draws z [3, T, B]: x_i = sum_j
+    C[i, j] z_j with C the regime's Cholesky factor (``high`` [T, B]
+    selects ``chol_high``), the einsum "tij,tj->ti" of the JAX package."""
+    lo, hi = (torch.as_tensor(c, device=z.device).to(z.dtype)
+              for c in (chol_low, chol_high))
+    out = []
+    for i in range(3):
+        acc = None
+        for j in range(3):
+            term = torch.where(high, hi[i, j], lo[i, j]) * z[j]
+            acc = term if acc is None else acc + term
+        out.append(acc)
+    return out
+
 
 def generate_returns_parametric(model, regime_path, key):
     """Regime-conditional correlated Student-t(STUDENT_T_DF) draws [T, 3]
@@ -220,17 +348,8 @@ def generate_returns_parametric(model, regime_path, key):
     dt = model.regime.p_stay.dtype
     T, B = regime_path.shape
     z = rng.t(key, float(cfg.STUDENT_T_DF), 3 * T, dt).reshape(B, T, 3)
-    z = z.permute(2, 1, 0)                                     # [3, T, B]
-    high = regime_path != 0
-    lo_c, hi_c = (torch.as_tensor(c, device=z.device).to(dt)
-                  for c in (CHOL_LOW, CHOL_HIGH))
-    x = []
-    for i in range(3):
-        acc = None
-        for j in range(3):
-            term = torch.where(high, hi_c[i, j], lo_c[i, j]) * z[j]
-            acc = term if acc is None else acc + term
-        x.append(acc)
+    x = cholesky_mix(z.permute(2, 1, 0), regime_path != 0, CHOL_LOW,
+                     CHOL_HIGH)
     reg = regime_path.long()
     std = model.regime.daily_std[reg]
     mu = model.regime.daily_mean[reg]
@@ -238,6 +357,28 @@ def generate_returns_parametric(model, regime_path, key):
     qqq = 1.15 * spy + 0.006 * x[1]
     tlt = -0.12 * spy + 0.004 * x[2]
     return spy, qqq, tlt
+
+
+def blend_engine_noise(model, regime_path, spy, qqq, tlt, key):
+    """The engine's bootstrap noise blend (path_engine.blend_engine_noise):
+    correlated Student-t draws (t of ``key``) scaled by the regime's
+    volatility, weighted twice by 1 - BOOTSTRAP_WEIGHT as the reference
+    weights them (the noise carries the factor, then the blend applies it
+    again). [T, B] in and out."""
+    dt = spy.dtype
+    T, B = regime_path.shape
+    w = float(np.clip(cfg.BOOTSTRAP_WEIGHT, 0.0, 1.0))
+    noise_w = 1.0 - w
+    z = rng.t(key, float(cfg.STUDENT_T_DF), 3 * T, dt).reshape(B, T, 3)
+    x = cholesky_mix(z.permute(2, 1, 0), regime_path != 0, CHOL_BLEND_LOW,
+                     CHOL_BLEND_HIGH)
+    spy_std = model.regime.daily_std[regime_path.long()]
+    spy_noise = noise_w * spy_std * 0.55 * x[0]
+    qqq_noise = noise_w * 1.35 * spy_std * 0.45 * x[1]
+    tlt_noise = noise_w * 0.55 * spy_std * 0.35 * x[2]
+    return (w * spy + (1 - w) * (spy + spy_noise),
+            w * qqq + (1 - w) * (qqq + qqq_noise),
+            w * tlt + (1 - w) * (tlt + tlt_noise))
 
 
 def simulate_vix_given_returns(model, regime_path, spy_returns, vix_noise):
@@ -364,32 +505,50 @@ def _window(a, offsets, sim_days: int):
     return torch.gather(a, 0, idx)
 
 
-def path_from_innovations(model, innov: Innovations, sim_days: int,
-                          use_funding_model: bool = True,
-                          use_stress: bool = True,
-                          engine_mode: str = "parametric",
-                          bootstrap_pools=None) -> PathOutputs:
-    """Deterministic path math given the draws (path_engine.
-    path_from_innovations): returns, VIX and IRX over all T days, the
-    random-start window, stress and signed jumps, funding, leverage and
-    tracking error, then the validity checks and repair (finish_path)."""
-    why = _unported(engine_mode, bootstrap_pools)
-    if why:
-        raise NotImplementedError(why)
+def mode_returns(model, innov: Innovations, engine_mode: str,
+                 bootstrap_pools=None, moment_matching: bool = True):
+    """SPY/QQQ/TLT returns and VIX [T, B] over all T days of the engine
+    mode (path_from_innovations' first stage): the joint scan
+    (institutional_v1), the block bootstrap blended with the engine's
+    noise (legacy_hybrid with pools: ``bootstrap.sample_bootstrap_returns``
+    of the first key of split(mode key), the blend of the second), or the
+    parametric Student-t draws; the last two through the standalone VIX
+    recursion."""
     regime_full = innov.regime_full
-    spy_f, qqq_f, tlt_f = generate_returns_parametric(model, regime_full,
-                                                      innov.mode_key)
-    vix_full = simulate_vix_given_returns(model, regime_full, spy_f,
-                                          innov.vix_noise)
-    irx_full = torch.clamp(model.irx_base[regime_full.long()]
-                           + 0.5 * innov.irx_noise, 0.0, 15.0)
+    if engine_mode == "institutional_v1":
+        if innov.eps is None:
+            raise ValueError("the institutional mode needs the joint draws: "
+                             "draw_innovations(..., engine_mode="
+                             "'institutional_v1')")
+        x, vix = simulate_joint_and_vix(model, regime_full, innov.eps,
+                                        innov.u_chi, innov.vix_noise,
+                                        moment_matching)
+        return x[0], x[1], x[2], vix
+    if engine_mode == "legacy_hybrid" and bootstrap_pools is not None:
+        from letf_tpu_torch.models import bootstrap
 
-    off = innov.start_offset
-    regime = _window(regime_full, off, sim_days)
-    vix, irx = _window(vix_full, off, sim_days), _window(irx_full, off,
-                                                         sim_days)
-    spy, qqq, tlt = (_window(a, off, sim_days) for a in (spy_f, qqq_f, tlt_f))
+        pools = bootstrap.pools_on(bootstrap_pools, regime_full.device,
+                                   model.regime.p_stay.dtype)
+        k_boot, k_blend = rng.split(innov.mode_key, 2).unbind(1)
+        s = bootstrap.sample_bootstrap_returns(pools, regime_full, k_boot,
+                                               regime_full.shape[0])
+        spy, qqq, tlt = blend_engine_noise(model, regime_full, s["SPY_Ret"],
+                                           s["QQQ_Ret"], s["TLT_Ret"],
+                                           k_blend)
+    else:
+        spy, qqq, tlt = generate_returns_parametric(model, regime_full,
+                                                    innov.mode_key)
+    vix = simulate_vix_given_returns(model, regime_full, spy,
+                                     innov.vix_noise)
+    return spy, qqq, tlt, vix
 
+
+def compose_path(model, innov: Innovations, spy, qqq, tlt, vix, irx, regime,
+                 use_funding_model: bool = True,
+                 use_stress: bool = True) -> PathOutputs:
+    """The windowed [S, B] streams to a path: stress and signed jumps,
+    funding, leverage and tracking error of all six assets, then the
+    validity checks and repair (finish_path)."""
     if use_stress:
         liq, cred, jump = simulate_stress(model, regime, vix,
                                           innov.stress_norms, innov.u_jump,
@@ -424,19 +583,71 @@ def path_from_innovations(model, innov: Innovations, sim_days: int,
                        risk_free, sc, jump_days, liq_mean, cred_mean)
 
 
+def path_from_innovations(model, innov: Innovations, sim_days: int,
+                          moment_matching: bool = True,
+                          use_funding_model: bool = True,
+                          use_stress: bool = True,
+                          engine_mode: str = "institutional_v1",
+                          bootstrap_pools=None) -> PathOutputs:
+    """Deterministic path math given the draws (path_engine.
+    path_from_innovations): the mode's returns and VIX and the IRX over
+    all T days, the random-start window, then ``compose_path``.
+    ``legacy_hybrid`` without pools is the parametric model, as in the
+    reference."""
+    _check_mode(engine_mode)
+    regime_full = innov.regime_full
+    spy_f, qqq_f, tlt_f, vix_full = mode_returns(
+        model, innov, engine_mode, bootstrap_pools, moment_matching)
+    irx_full = torch.clamp(model.irx_base[regime_full.long()]
+                           + 0.5 * innov.irx_noise, 0.0, 15.0)
+    off = innov.start_offset
+    chans = [_window(a, off, sim_days)
+             for a in (spy_f, qqq_f, tlt_f, vix_full, irx_full, regime_full)]
+    return compose_path(model, innov, *chans, use_funding_model, use_stress)
+
+
+def _squeeze(path: PathOutputs) -> PathOutputs:
+    return PathOutputs(*(a[..., 0] for a in path))
+
+
+def generate_path(model, run_key, trial_id, antithetic, sim_days: int,
+                  buffer_days: int = 0, random_start_method: str = "offset",
+                  moment_matching: bool = True,
+                  use_funding_model: bool = True, use_stress: bool = True,
+                  engine_mode: str = "institutional_v1",
+                  bootstrap_pools=None, anchors=None) -> PathOutputs:
+    """One trial (path_engine.generate_path): ``generate_paths_batch`` of
+    the single trial id, its batch axis dropped (``etf_ret`` [A, S],
+    series [S], per-trial fields 0-d)."""
+    ids = torch.as_tensor(trial_id, device=run_key.device).reshape(1)
+    anti = torch.as_tensor(antithetic, device=run_key.device).reshape(1)
+    return _squeeze(generate_paths_batch(
+        model, run_key, ids, anti, sim_days, buffer_days,
+        random_start_method, moment_matching, use_funding_model, use_stress,
+        engine_mode, bootstrap_pools, anchors))
+
+
 def generate_paths_batch(model, run_key, trial_ids, antithetic,
                          sim_days: int, buffer_days: int = 0,
                          random_start_method: str = "offset",
+                         moment_matching: bool = True,
                          use_funding_model: bool = True,
                          use_stress: bool = True,
-                         engine_mode: str = "parametric",
+                         engine_mode: str = "institutional_v1",
                          bootstrap_pools=None, anchors=None) -> PathOutputs:
     """Trials ``trial_ids`` [B] through ``draw_innovations`` and
-    ``path_from_innovations`` (path_engine.generate_paths_batch). The
-    parametric mode draws no joint normals, so an antithetic pair's two
-    trials are the same path, as in the JAX package."""
+    ``path_from_innovations`` (path_engine.generate_paths_batch, whose
+    keywords are generate_path's). In the parametric and legacy modes no
+    joint normals are drawn, so an antithetic pair's two trials are the
+    same path, as in the JAX package."""
     innov = draw_innovations(model, run_key, trial_ids, antithetic, sim_days,
                              buffer_days, random_start_method, anchors,
-                             engine_mode, bootstrap_pools)
-    return path_from_innovations(model, innov, sim_days, use_funding_model,
-                                 use_stress, engine_mode, bootstrap_pools)
+                             engine_mode=engine_mode)
+    return path_from_innovations(model, innov, sim_days, moment_matching,
+                                 use_funding_model, use_stress, engine_mode,
+                                 bootstrap_pools)
+
+
+# The reference's jitted single-trial wrappers; torch runs them eagerly.
+draw_innovations_jit = draw_innovations
+path_from_innovations_jit = path_from_innovations

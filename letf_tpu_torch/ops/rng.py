@@ -6,8 +6,10 @@ Two families, both computed on int64 tensors that hold uint32 values
 - threefry2x32 keys and draws, bit-exact with ``jax.random`` in JAX's
   partitionable mode (``jax_threefry_partitionable=True``, the default of
   jax 0.9): ``key``, ``fold_in``, ``split``, ``random_bits``, ``uniform``,
-  ``randint``. A key is an int64 tensor ``[..., 2]`` holding the two uint32
-  words of ``jax.random.key_data``. The stream discipline of
+  ``randint``; ``gumbel``, ``normal``, ``gamma`` and ``t`` on them (their
+  logs and polynomials an ulp or a few from XLA's). A key is an int64
+  tensor ``[..., 2]`` holding the two uint32 words of
+  ``jax.random.key_data``. The stream discipline of
   ``letf_tpu/ops/rng.py`` (``trial_key``, ``stream``, stream ids) is kept.
 - the murmur3 counter mixers of the Pallas kernels and of the regime
   spells: ``mix`` / ``bits_to_unit`` (``letf_tpu/ops/pallas_joint.py``)
@@ -125,10 +127,26 @@ def _unit_floats(keys: torch.Tensor, n: int, dtype: torch.dtype,
 
 
 def uniform(keys: torch.Tensor, n: int = 1,
-            dtype: torch.dtype = torch.float32) -> torch.Tensor:
-    """``jax.random.uniform(k, (n,), dtype)`` in [0, 1) per key:
-    ``[..., n]``. float32 uses 32 random bits, float64 64 (x64 mode)."""
-    return torch.clamp_min(_unit_floats(keys, n, dtype), 0.0)
+            dtype: torch.dtype = torch.float32, minval: float = 0.0,
+            maxval: float = 1.0) -> torch.Tensor:
+    """``jax.random.uniform(k, (n,), dtype, minval, maxval)`` per key:
+    ``[..., n]``, max(minval, f * (maxval - minval) + minval) of the
+    mantissa fill f in [0, 1). float32 uses 32 random bits, float64 64
+    (x64 mode)."""
+    f = _unit_floats(keys, n, dtype)
+    if (minval, maxval) != (0.0, 1.0):
+        f = f * (maxval - minval) + minval
+    return torch.clamp_min(f, minval)
+
+
+def gumbel(keys: torch.Tensor, n: int = 1,
+           dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """``jax.random.gumbel(k, (n,), dtype)`` per key: ``[..., n]``. jax
+    0.9's default mode is "low" (``jax_high_dynamic_range_gumbel`` is
+    off): -log(-log(u)) of the uniform on [tiny, 1). The uniforms are
+    bitwise JAX's; the two logs are torch's (an ulp from XLA's)."""
+    u = uniform(keys, n, dtype, minval=torch.finfo(dtype).tiny)
+    return -torch.log(-torch.log(u))
 
 
 def randint(keys: torch.Tensor, minval, maxval,

@@ -287,20 +287,35 @@ def _mark(stage_seconds, name, t0, dev):
     return time.perf_counter()
 
 
-def sampled_post_tax_tables(run, fw, time_horizon: int, percentiles,
-                            tax_config: Optional[Dict] = None,
+def sampled_post_tax_tables(model, fw_dev, time_horizon: int,
+                            num_simulations: int, seed: int,
+                            tax_config: Optional[Dict],
+                            engine_mode: str, random_start_method: str,
+                            buffer_days: int, use_antithetic: bool,
+                            percentiles,
                             max_tax_sims: Optional[int] = None,
+                            cashflows=None, anchors=None,
+                            bootstrap_pools=None, *, device="cuda",
                             stage_seconds: Optional[Dict] = None) -> Dict:
-    """Post-tax tables of the report. ``run``: the report's resolved
-    configuration (parallel.mc_runner._Run: model, key, trial layout,
-    horizon, buffer, cashflows); ``fw``: its [N, 19] final wealth on the
-    device. Returns {sid: {wealth: {pXX}, cagr: {pXX}, median_tax,
-    win_rate_vs_spy_post_tax, n_sampled, method}} for the 13 taxable ids.
-    ``stage_seconds``, when given, receives the seconds of each stage
-    (pick_rows, replay, bridge, tax, interp_reduce; bridge and tax summed
-    over the two bridge groups)."""
-    from letf_tpu_torch.parallel.mc_runner import _trial_layout, general_chunk
+    """Post-tax tables of the report, with the reference's parameters:
+    ``fw_dev`` is the report run's [N, 19] final wealth on ``device``; the
+    run's configuration (model, seed, engine mode with its bootstrap
+    pools, start method and buffer, pairing, cashflows, anchors) replays
+    the sampled trials with emission. Returns {sid: {wealth: {pXX}, cagr:
+    {pXX}, median_tax, win_rate_vs_spy_post_tax, n_sampled, method}} for
+    the 13 taxable ids. ``stage_seconds``, when given, receives the
+    seconds of each stage (pick_rows, replay, bridge, tax, interp_reduce;
+    bridge and tax summed over the two bridge groups)."""
+    from letf_tpu_torch.parallel.mc_runner import (
+        _Run,
+        _trial_layout,
+        general_chunk,
+    )
 
+    run = _Run(model, time_horizon, num_simulations, seed, None,
+               use_antithetic, random_start_method, True, cashflows, anchors,
+               device, engine_mode, bootstrap_pools)
+    run.buffer_days = int(buffer_days)
     if time_horizon != int(time_horizon):
         raise ValueError("the sampled post-tax tables need a whole number "
                          f"of years, got {time_horizon}")
@@ -310,14 +325,15 @@ def sampled_post_tax_tables(run, fw, time_horizon: int, percentiles,
     sids = list(cfg.TAXABLE_IDS)
     wcol = {sid: cfg.STRATEGY_INDEX[sid] for sid in sids}
     jcol = {sid: cfg.TAXABLE_IDS.index(sid) for sid in sids}
-    dev = fw.device
+    dev = fw_dev.device
     dt = glue_dtype(dev)
     t0 = time.perf_counter()
 
     # Reference sampling rule: evenly spaced sorted-wealth positions.
     pos = torch.as_tensor(np.linspace(0, n - 1, m, dtype=int), device=dev)
-    rows = torch.stack([torch.argsort(fw[:n, wcol[sid]], stable=True)[pos]
-                        for sid in sids])                         # [13, m]
+    rows = torch.stack([
+        torch.argsort(fw_dev[:n, wcol[sid]], stable=True)[pos]
+        for sid in sids])                                         # [13, m]
     rows_h = rows.cpu().numpy()
     uniq = np.unique(rows_h)
     urow = np.searchsorted(uniq, rows_h)                          # [13, m]
@@ -349,10 +365,10 @@ def sampled_post_tax_tables(run, fw, time_horizon: int, percentiles,
 
     q = torch.tensor([p / 100.0 for p in percentiles], dtype=dt, device=dev)
     # SPY (S2) is a benchmark id without a journal: post-tax == pre-tax.
-    spy_post = fw[:n, cfg.STRATEGY_INDEX["S2"]].to(dt)
+    spy_post = fw_dev[:n, cfg.STRATEGY_INDEX["S2"]].to(dt)
     fans, wins, meds = [], [], []
     for i, sid in enumerate(sids):
-        w = fw[:n, wcol[sid]].to(dt)
+        w = fw_dev[:n, wcol[sid]].to(dt)
         sw = w[rows[i]]
         o = torch.argsort(sw, stable=True)
         tax_all = interp(w, sw[o], sample_tax[i][o])
@@ -543,7 +559,8 @@ def _exact_tax_via_replay(ctx: Dict, sid: str, n: int, time_horizon: int,
     run = _Run(ctx["model"], time_horizon, ctx["num_simulations"],
                ctx["seed"], chunk_size, ctx["use_antithetic"],
                ctx["random_start_method"], anchors=ctx["anchors"],
-               device=ctx["device"], engine_mode=ctx["engine_mode"])
+               device=ctx["device"], engine_mode=ctx["engine_mode"],
+               bootstrap_pools=ctx["bootstrap_pools"])
     dt = glue_dtype(run.device)
     ids, anti = _trial_layout(ctx["num_simulations"], ctx["use_antithetic"])
     income, tax_kw = tax_setup(tax_config, time_horizon)

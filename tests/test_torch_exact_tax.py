@@ -134,8 +134,10 @@ def test_sampled_tables_equal_exact_at_small_n(model, chunk, port_exact):
     tests/test_mc_runner.py:219 holds the reference's."""
     summ, _ = chunk
     run = mc_runner._Run(model, 1, N, SEED, device="cpu")
-    sampled = reporting.sampled_post_tax_tables(run, summ["final_wealth"], 1,
-                                                PCTS)
+    sampled = reporting.sampled_post_tax_tables(
+        model, summ["final_wealth"], 1, N, SEED, None, "institutional_v1",
+        run.random_start_method, run.buffer_days, run.use_antithetic, PCTS,
+        device="cpu")
     exact = port_exact
     for sid in cfg.TAXABLE_IDS:
         assert sampled[sid]["n_sampled"] == N

@@ -76,7 +76,8 @@ def test_port_imports_nothing_of_jax_in_a_fresh_interpreter():
     assert out.stdout.startswith("ok"), out.stdout
     assert "letf_tpu_torch.ops.strategies" in MODULES
     assert "letf_tpu_torch.ops.gbm" in MODULES
-    for m in ("calibration", "data", "runner", "cli", "utils.frame"):
+    for m in ("calibration", "data", "runner", "cli", "utils.frame",
+              "models.bootstrap", "diagnose"):
         assert f"letf_tpu_torch.{m}" in MODULES
 
 

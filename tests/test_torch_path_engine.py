@@ -15,6 +15,8 @@ import torch
 
 from letf_tpu.models.params import default_sim_model
 from letf_tpu.ops import path_engine as jpe
+from letf_tpu_torch.data import generate_synthetic_history
+from letf_tpu_torch.models.bootstrap import build_bootstrap_pools
 from letf_tpu_torch.models.params import from_jax_model, from_numpy
 from letf_tpu_torch.ops import path_engine as tpe
 from letf_tpu_torch.ops import rng
@@ -84,7 +86,8 @@ def test_path_from_innovations_matches_jax(models, jax_innov):
     jm, mt = models
     jp = jax.vmap(lambda inn: jpe.path_from_innovations(
         jm, inn, S, engine_mode="parametric"))(jax_innov)
-    tp = tpe.path_from_innovations(mt, carried(jax_innov), S)
+    tp = tpe.path_from_innovations(mt, carried(jax_innov), S,
+                                   engine_mode="parametric")
     close(tp.etf_ret.numpy().transpose(2, 1, 0), jp.etf_ret, 1e-12, 1e-15,
           "etf_ret")
     for k in ("tlt_ret", "spy_ret", "qqq_ret", "vix", "cash_ret",
@@ -114,10 +117,19 @@ def test_generate_paths_batch_is_draws_then_path(models, jax_innov):
 
 
 def test_unported_modes_raise(models):
+    """Every engine mode of the JAX package runs (the institutional mode
+    and legacy_hybrid with pools: tests/test_torch_engine_modes.py and
+    tests/test_torch_bootstrap.py); an unknown engine mode raises."""
     _, mt = models
     ids = torch.arange(4)
-    for kw, item in ((dict(engine_mode="institutional_v1"), "item 11"),
-                     (dict(engine_mode="legacy_hybrid", bootstrap_pools={}),
-                      "item 15")):
-        with pytest.raises(NotImplementedError, match=f"ROADMAP.*{item}"):
-            tpe.generate_paths_batch(mt, rng.key(0), ids, ids < 0, 21, **kw)
+    pools = build_bootstrap_pools(
+        generate_synthetic_history("2015-01-01", "2025-12-31"))
+    for kw in (dict(engine_mode="institutional_v1"),
+               dict(engine_mode="parametric"),
+               dict(engine_mode="legacy_hybrid", bootstrap_pools=pools)):
+        p = tpe.generate_paths_batch(mt, rng.key(0), ids, ids < 0, 21, **kw)
+        assert p.etf_ret.shape == (6, 21, 4)
+        assert bool(torch.isfinite(p.etf_ret).all()), kw
+    with pytest.raises(ValueError, match="engine_mode"):
+        tpe.generate_paths_batch(mt, rng.key(0), ids, ids < 0, 21,
+                                 engine_mode="bootstrap")

@@ -19,6 +19,8 @@ from letf_tpu.models.params import default_sim_model
 from letf_tpu.ops import pallas_joint, pallas_strategies, pallas_window
 from letf_tpu.ops.path_batched import plan_max_spells
 from letf_tpu.ops.slab_chunk import slab_chunk_summaries as jax_chunk
+from letf_tpu_torch.data import generate_synthetic_history
+from letf_tpu_torch.models.bootstrap import build_bootstrap_pools
 from letf_tpu_torch.models.params import from_numpy
 from letf_tpu_torch.ops import compose_strategies as k3
 from letf_tpu_torch.ops import rng
@@ -143,19 +145,24 @@ def test_run_monte_carlo_chunking_is_bitwise(model, monkeypatch):
 
 
 def test_unported_modes_raise(model):
-    """legacy_hybrid with bootstrap pools raises naming its ROADMAP item
-    (the parametric modes run: tests/test_torch_parametric_report.py; the
-    sampled default: tests/test_torch_sampled_report.py; exact_all:
-    tests/test_torch_exact_tax.py); trade emission is
-    emit_trade_lists', not a run_monte_carlo argument, as in the JAX
-    package; an unknown engine mode is a ValueError; a mesh, checkpoint/
-    resume, max_chunks and fault_tolerant raise naming item 17."""
-    for fn in (mc_runner.run_monte_carlo, mc_runner.emit_trade_lists):
-        args = (model, 1, [0]) if fn is mc_runner.emit_trade_lists \
-            else (model, 1)
-        with pytest.raises(NotImplementedError, match="ROADMAP.*item 15"):
-            fn(*args, num_simulations=8, device="cpu",
-               engine_mode="legacy_hybrid", bootstrap_pools={"SPY": []})
+    """legacy_hybrid with bootstrap pools runs through run_monte_carlo and
+    emit_trade_lists (held to the JAX package in
+    tests/test_torch_bootstrap.py; the parametric modes:
+    tests/test_torch_parametric_report.py; the sampled default:
+    tests/test_torch_sampled_report.py; exact_all:
+    tests/test_torch_exact_tax.py); trade emission is emit_trade_lists',
+    not a run_monte_carlo argument, as in the JAX package; an unknown
+    engine mode is a ValueError; a mesh, checkpoint/resume, max_chunks and
+    fault_tolerant raise naming item 17."""
+    pools = build_bootstrap_pools(
+        generate_synthetic_history("2015-01-01", "2025-12-31"))
+    kw = dict(num_simulations=4, device="cpu", engine_mode="legacy_hybrid",
+              bootstrap_pools=pools)
+    arrays = mc_runner.run_monte_carlo(model, 0.25, progress=False, **kw)
+    assert np.isfinite(arrays.final_wealth).all()
+    trades = mc_runner.emit_trade_lists(model, 0.25, [0, 3], **kw)
+    assert sorted(trades) == [0, 3]
+    assert set(trades[0]) == set(cfg.TAXABLE_IDS)
     with pytest.raises(TypeError, match="emit_trades"):
         mc_runner.run_monte_carlo(model, 1, num_simulations=8,
                                   emit_trades=True, device="cpu")
