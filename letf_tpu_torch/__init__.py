@@ -10,10 +10,12 @@ sm_90a (``csrc/``), each beside a plain PyTorch version of the same
 function.
 
 Device policy (``utils.device``): every public entry takes an explicit
-``device``. Kernels and their plain versions compute in float32; the glue
-(regime spells, start conditions) and the tax bridge run in float64 on the
-CPU, mirroring the JAX test suite's x64 mode, and in float32 on the card,
-mirroring JAX's default mode. Nothing falls back to the CPU on its own.
+``device``. The path kernels and their plain versions compute in
+float32; the glue (regime spells, start conditions) runs in float64 on
+the CPU, mirroring the JAX test suite's x64 mode, and in float32 on the
+card, mirroring JAX's default mode; every tax bridge (K7, K8) runs in
+float64 on both (``reporting.BRIDGE_DTYPE``). Nothing falls back to the
+CPU on its own.
 
 The production entry runs from the data to the fans
 (``runner.run_report``, ``python -m letf_tpu_torch.cli --report``): the
@@ -28,6 +30,11 @@ reference-format results list (``parallel.mc_runner.parallel_monte_carlo_fixed``
 the Roth and taxable tables through the host tax chain
 (``reporting.create_summary_statistics``, ``integration.py``, ``tax/``)
 and the comparison with history (``historical.py``).
+
+The reference's oracles run on the host in float64: the path oracle
+(``oracle.py``) and the host strategy oracle (``strategies/host.py``,
+behind ``historical.run_strategy_on_history``); ``tqqq.py`` is the root
+TQQQ sanity flow.
 
 The package imports torch, numpy and scipy, and never jax, the JAX
 package or pandas: it keeps its own copies of the configuration, the

@@ -8,8 +8,9 @@
 // equal the plain PyTorch version bitwise (ops/wash.py::wash_plain, a port
 // of tax/device_bridge._wash_matching_scan).
 //
-// What bounds it on the H100. Its bytes (three [S, B] inputs and three
-// outputs; 0.035 ms at 3.35 TB/s for the sampled report's [7,560, ~650])
+// What bounds it on the H100. Its bytes (three [S, B] float64 inputs and
+// three outputs; 0.054 ms at 3.35 TB/s for the sampled report's [7,560,
+// ~650])
 // and, in the first port's one-thread-a-trial day loop, a serial chain of
 // a few memory latencies every day (a load of loss[d], then up to 60
 // dependent probes of buy_q on a loss day): 18.5 ms. Only the matching
@@ -35,18 +36,27 @@
 //     loss days, so (b) writes nothing else.
 // tests/test_torch_wash.py holds a numpy transcription of (b) bitwise to
 // the plain version and to the Pallas kernel.
+//
+// Values are float64, as the bridge computes (a float32 share coordinate
+// near 10^7 shares is one share apart); (b) sees only the bitsets.
 
 #include "common.cuh"
 
 namespace {
 
 constexpr int kWindow = 30;
-constexpr float kMinShares = 0.001f;
 constexpr int kBits = 256;      // threads a block of (a) and (c)
+constexpr double kMinShares = 0.001;
+constexpr double kTiny = 1e-30;
+
+// common.cuh's jmax for double.
+__device__ __forceinline__ double jmax(double a, double b) {
+  return (a != a) ? a : ((b != b) ? b : fmax(a, b));
+}
 
 // (a): word w of trial b. ebits/lbits [NW, B].
 __global__ void __launch_bounds__(kBits)
-bits_kernel(const float* __restrict__ loss, const float* __restrict__ buy,
+bits_kernel(const double* __restrict__ loss, const double* __restrict__ buy,
             int S, int B, int NW, uint32_t* __restrict__ ebits,
             uint32_t* __restrict__ lbits) {
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
@@ -58,7 +68,7 @@ bits_kernel(const float* __restrict__ loss, const float* __restrict__ buy,
   for (int j = 0; j < n; ++j) {
     const size_t at = (size_t)(d0 + j) * B + b;
     e |= (uint32_t)(buy[at] > kMinShares) << j;
-    l |= (uint32_t)(loss[at] > 0.0f) << j;
+    l |= (uint32_t)(loss[at] > 0.0) << j;
   }
   ebits[(size_t)w * B + b] = e;
   lbits[(size_t)w * B + b] = l;
@@ -120,23 +130,23 @@ match_kernel(const uint32_t* __restrict__ ebits,
 
 // (c): every trial-day.
 __global__ void __launch_bounds__(kBits)
-epilogue_kernel(const float* __restrict__ loss,
-                const float* __restrict__ sell,
-                const float* __restrict__ buy, int S, int B,
-                float* __restrict__ dis, int* __restrict__ off,
+epilogue_kernel(const double* __restrict__ loss,
+                const double* __restrict__ sell,
+                const double* __restrict__ buy, int S, int B,
+                double* __restrict__ dis, int* __restrict__ off,
                 unsigned char* __restrict__ has) {
   const size_t n = (size_t)S * B;
   for (size_t at = (size_t)blockIdx.x * blockDim.x + threadIdx.x; at < n;
        at += (size_t)gridDim.x * blockDim.x) {
-    const float l = loss[at];
-    float dv = 0.0f;
+    const double l = loss[at];
+    double dv = 0.0;
     int o = 0;
-    if (l > 0.0f) {
+    if (l > 0.0) {
       o = off[at];
       if (o != 0) {
-        const float q = buy[at + (ptrdiff_t)o * B];
-        const float m = sell[at];
-        const float frac = q >= m ? 1.0f : q / jmax(m, 1e-30f);
+        const double q = buy[at + (ptrdiff_t)o * B];
+        const double m = sell[at];
+        const double frac = q >= m ? 1.0 : q / jmax(m, kTiny);
         dv = l * frac;
       }
     }
@@ -162,9 +172,10 @@ cudaError_t allow_smem(int smem) {
 
 }  // namespace
 
-// bits: [2, ceil(S / 32), B] uint32 scratch.
-extern "C" int letf_wash(const float* loss, const float* sell,
-                         const float* buy, int S, int B, float* dis,
+// The three launches on [S, B] float64 values. bits: [2, ceil(S / 32), B]
+// uint32 scratch.
+extern "C" int letf_wash(const double* loss, const double* sell,
+                         const double* buy, int S, int B, double* dis,
                          int* off, unsigned char* has, uint32_t* bits,
                          void* stream) {
   if (S <= 0 || B <= 0) return (int)cudaGetLastError();

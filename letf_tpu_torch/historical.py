@@ -20,9 +20,9 @@ The port's copy of ``letf_tpu/historical.py`` on the history frame
   through ``strategies/engine.run_strategies_batch`` without emission,
   that is kernel K4 (any window count).
 
-``run_strategy_on_history`` needs the host strategy oracle
-(``letf_tpu/strategies/host.run_strategy_fixed``), which is not ported:
-it raises naming ROADMAP item 16.
+- run_strategy_on_history: one strategy on the history with the host
+  strategy oracle (``strategies/host.run_strategy_fixed``, numpy), its
+  regimes inferred from VIX.
 """
 
 from __future__ import annotations
@@ -350,13 +350,12 @@ def backtest_strategy_on_history(df: Frame, sid: str, horizon: int,
 
 
 def run_strategy_on_history(df: Frame, strategy_id: str):
-    """Backtest one strategy on the history with the host strategy oracle
-    (``letf_tpu/historical.py:501``): the oracle ``run_strategy_fixed`` is
-    not ported; ``backtest_strategies_on_history`` is the batched form."""
-    raise NotImplementedError(
-        "run_strategy_on_history needs the host strategy oracle "
-        "strategies/host.run_strategy_fixed, not ported yet: ROADMAP item "
-        "16; use backtest_strategies_on_history")
+    """Backtest a strategy on historical data (regime inferred from VIX via
+    the stress model — the reference's regime_path=None path,
+    historical.py:96-102 / strategy.py:64-78). Returns (equity curve numpy
+    array, num_trades)."""
+    from letf_tpu_torch.strategies.host import run_strategy_fixed
+    return run_strategy_fixed(df, strategy_id, regime_path=None)
 
 
 def compare_simulated_vs_historical(df: Frame,

@@ -22,10 +22,16 @@ of at most 14,528 days with a secondary (``_merge_limit``; the
 reference's 50-year horizon is 12,600) and raises ``ValueError`` beyond.
 The reference uses ``lax.sort`` at exactly the two places the port uses
 ``torch.sort``; its power-of-two padding fed the TPU's bitonic network and
-is not needed. Keys: float32 non-negative (compared by their int32 bits, as
-the reference does) or int32; float64 keys (the CPU parity suite) compare
-in IEEE total order. ``sort_bridge`` launches the kernel on CUDA tensors
-and runs ``sort_bridge_plain`` (one full stable sort) on CPU ones.
+is not needed. The kernel moves 64-bit keys and payloads, since the bridge
+computes in float64 (a float32 share coordinate near 10^7 shares is one
+share apart): float64 non-negative keys (compared by their int64 bits, as
+the reference compares its float32 ones by their int32 bits) or int64,
+with float64/int64 payloads and the int32 secondary; past 9,685 days a
+half it reads the secondary from device memory on key ties. The plain
+version also takes the reference's 32-bit words, and compares float64
+keys in IEEE total order, which is the int64 bit order on non-negative
+keys. ``sort_bridge`` launches the kernel on CUDA tensors and runs
+``sort_bridge_plain`` (one full stable sort) on CPU ones.
 """
 
 from __future__ import annotations
@@ -85,16 +91,23 @@ def sort_bridge_plain(key, sec, payloads=(), kind: str = "merge",
     return _result(key, sec, pays)
 
 
+_WORDS = (torch.float64, torch.int64)    # the kernel's key and payload words
+
+
 def _merge_limit(S: int, has_sec: bool):
     """(shared bytes, permutation in shared memory) of the merge kernel at
-    S days a half, as csrc/merge.cu's merge_smem; ValueError beyond what
-    it takes."""
-    rows = (2 if has_sec else 1) * 2 * S * 4
+    S days a half, as csrc/merge.cu's merge_smem (the sec row stays in
+    shared memory only where it fits beside the keys); ValueError beyond
+    what it takes."""
+    keys = 8 * 2 * S
+    sec_in_smem = has_sec and keys + 4 * 2 * S <= MAX_SMEM
+    rows = keys + (4 * 2 * S if sec_in_smem else 0)
     if rows > MAX_SMEM or 2 * S > 65536:
         raise ValueError(
             f"sort_bridge: a half of {S} days needs {rows} bytes of shared "
-            f"memory for its key{' and sec' if has_sec else ''} rows; the "
-            f"merge kernel takes at most {MAX_SMEM} (and 32,768 days)")
+            f"memory for its 64-bit key"
+            f"{' and sec' if has_sec else ''} rows; the merge kernel takes "
+            f"at most {MAX_SMEM} (and 32,768 days)")
     return rows, rows + 4 * S <= MAX_SMEM
 
 
@@ -116,20 +129,23 @@ def _merge_halves(heads, tails, has_sec: bool):
     dev = tails[0].device
     checks = {}
     for c, (h, t) in enumerate(zip(heads, tails)):
+        want = (torch.int32,) if has_sec and c == 1 else _WORDS
         for part, a in (("head", h), ("tail", t)):
             if a is None:
                 continue
             if a.shape != (S, R):
                 raise ValueError(f"merge_halves: array {c} {part} "
                                  f"{tuple(a.shape)}, expected {(S, R)}")
-            if a.dtype not in (torch.float32, torch.int32):
-                raise TypeError(f"merge_halves: array {c} has dtype "
-                                f"{a.dtype}; the kernel moves 32-bit words")
+            if a.dtype not in want:
+                raise TypeError(
+                    f"merge_halves: array {c} has dtype {a.dtype}; the "
+                    f"kernel takes {want}")
             checks[f"{part}{c}"] = (a, a.dtype)
     _build.check_cuda("merge_halves", dev, **checks)
     outs = [torch.empty((2 * S, R), dtype=t.dtype, device=dev)
             for t in tails]
-    tm = torch.empty((len(tails), R, 2 * S), dtype=torch.int32, device=dev)
+    width = [4 if has_sec and c == 1 else 8 for c in range(len(tails))]
+    tm = torch.empty(R * 2 * S * sum(width), dtype=torch.uint8, device=dev)
     perm = (None if perm_in_smem else
             torch.empty((R, 2 * S), dtype=torch.int16, device=dev))
     head_zero = sum(1 << c for c, h in enumerate(heads) if h is None)
@@ -153,10 +169,12 @@ def _merge_halves(heads, tails, has_sec: bool):
 def sort_bridge(key, sec, payloads=(), kind: str = "merge",
                 head_payloads_zero: bool = False):
     """K7 on the device of the inputs (see the module docstring). key
-    [N, R] float32 (non-negative) or int32, sec [N, R] int32 unique per
-    column or None, payloads [N, R] float32/int32. On CUDA tensors the
-    merge and valley kinds launch the kernel, which raises ``ValueError``
-    for a half longer than it takes (``_merge_limit``)."""
+    [N, R] float64 (non-negative) or int64 with float64/int64 payloads
+    (on CPU tensors also float32 or int32 with float32/int32 payloads);
+    sec [N, R] int32 unique per column or None. On CUDA tensors the merge
+    and valley kinds launch the kernel, which raises ``ValueError`` for a
+    half longer than it takes (``_merge_limit``) and ``TypeError`` for
+    32-bit words."""
     if kind not in ("merge", "valley", "sort"):
         raise ValueError(f"sort_bridge: kind {kind!r}")
     if key.device.type == "cpu":

@@ -9,9 +9,10 @@ is loss * min(1, replacement shares / sold shares).
 
 Layout ``[S, B]`` (days first, trials contiguous). ``wash_matching``
 launches ``csrc/wash.cu`` on CUDA tensors (day bitsets, a per-trial walk
-over the loss days, a coalesced epilogue) and runs ``wash_plain`` on CPU
-ones; both return (disallowed [S, B], rep_off [S, B] int32 in [-30, 30],
-has [S, B] bool), bitwise equal.
+over the loss days, a coalesced epilogue; float64 inputs, as the bridge
+computes) and runs ``wash_plain`` on CPU ones (any float dtype);
+both return (disallowed [S, B], rep_off [S, B] int32 in [-30, 30], has
+[S, B] bool), bitwise equal.
 """
 
 from __future__ import annotations
@@ -60,8 +61,8 @@ def wash_plain(loss, sell_sh, buy_q):
 
 
 def wash_matching(loss, sell_sh, buy_q):
-    """K8 on the device of the inputs: the CUDA kernel for CUDA tensors
-    (float32), ``wash_plain`` for CPU tensors."""
+    """K8 on the device of the inputs: the CUDA kernel for float64 CUDA
+    tensors, ``wash_plain`` for CPU tensors."""
     global LAUNCHES
     if loss.device.type == "cpu":
         return wash_plain(loss, sell_sh, buy_q)
@@ -69,9 +70,9 @@ def wash_matching(loss, sell_sh, buy_q):
     if sell_sh.shape != (S, B) or buy_q.shape != (S, B):
         raise ValueError("wash_matching: loss, sell_sh, buy_q must be [S, B]")
     dev = loss.device
-    _build.check_cuda("wash_matching", dev, loss=(loss, torch.float32),
-                      sell_sh=(sell_sh, torch.float32),
-                      buy_q=(buy_q, torch.float32))
+    _build.check_cuda("wash_matching", dev, loss=(loss, torch.float64),
+                      sell_sh=(sell_sh, torch.float64),
+                      buy_q=(buy_q, torch.float64))
     dis = torch.empty_like(loss)
     rep_off = torch.empty((S, B), dtype=torch.int32, device=dev)
     has = torch.empty((S, B), dtype=torch.uint8, device=dev)

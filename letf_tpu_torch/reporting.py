@@ -40,8 +40,13 @@ The port keeps its own copies of the reference's tax configuration
 
 The interpolation is a plain index lookup (``torch.searchsorted`` plus
 gathers) in the working precision; the reference's one-hot matmul was a
-TPU workaround. The bridge and tax run in the glue dtype (float64 on the
-CPU, float32 on the card, as on the TPU).
+TPU workaround. The interpolation and the reductions run in the glue
+dtype (float64 on the CPU, float32 on the card, as on the TPU); every
+bridge and its tax (the sampled tables, ``exact_post_tax_all_trials``,
+``_exact_tax_via_replay``) run in ``BRIDGE_DTYPE``, float64 on both
+(``bridge_columns``): a float32 cumulative share coordinate near 10^7
+shares is one share apart, which over 30 years moved a trial's tax by up
+to 2.4e-3 of its gross traded dollars on the card.
 """
 
 from __future__ import annotations
@@ -87,6 +92,7 @@ STATE_TAX_INFO = {
 }
 MAX_TAX_SIMS = 50
 FOLD_ROWS = 8192
+BRIDGE_DTYPE = torch.float64   # the precision of every bridge and its tax
 DEFAULT_TAX_CONFIG = {
     "state": "CA", "state_name": "California",
     "ordinary_income": 150000, "filing_status": "single",
@@ -221,17 +227,24 @@ def interp(w, xp, fp):
     return f0 + t * (f1 - f0)
 
 
+def bridge_columns(cols):
+    """Emission columns (alloc, value, price, asset) with the float ones
+    in ``BRIDGE_DTYPE``, as every caller hands them to the bridge."""
+    return [c if c.dtype == torch.int8 else c.to(BRIDGE_DTYPE)
+            for c in cols]
+
+
 def bridge_activity_tax(stacked, assets: tuple, n_years: int, income,
                         tax_kw: Dict, method: str = "FIFO",
                         lot_capacity: Optional[int] = None,
                         stage_seconds: Optional[Dict] = None):
     """Exact tax of each journal column of one bridge batch: ``stacked``
-    the (alloc, value, price, asset) [S, R] emission columns, ``assets``
-    the bridge assets the batch may trade, ``method`` / ``lot_capacity``
-    the lot election. Raises when a skipped asset sold shares. Returns
-    (total tax [R], ok [R]: the trial's yearly activity and tax are all
-    finite); ``stage_seconds`` accumulates the "bridge" and "tax"
-    seconds."""
+    the (alloc, value, price, asset) [S, R] emission columns (computed in
+    their float dtype), ``assets`` the bridge assets the batch may trade,
+    ``method`` / ``lot_capacity`` the lot election. Raises when a skipped
+    asset sold shares. Returns (total tax [R], ok [R]: the trial's yearly
+    activity and tax are all finite); ``stage_seconds`` accumulates the
+    "bridge" and "tax" seconds."""
     dev = stacked[0].device
     t0 = time.perf_counter()
     activity, n_trades, viol = yearly_activity_from_emission(
@@ -352,10 +365,10 @@ def sampled_post_tax_tables(model, fw_dev, time_horizon: int,
             [urow[sids.index(s)] for s in gsids]), device=dev)
         cidx = torch.as_tensor(np.concatenate(
             [np.full(m, jcol[s]) for s in gsids]), device=dev)
-        stacked = [e[:, bidx, cidx] for e in emission]            # [S, R]
+        stacked = bridge_columns(e[:, bidx, cidx] for e in emission)
         return bridge_tax(stacked, (0, 1) if "S8" in gsids else (0,),
                           n_years, income, tax_kw,
-                          stage_seconds).reshape(len(gsids), m)
+                          stage_seconds).to(dt).reshape(len(gsids), m)
 
     others = [s for s in sids if s != "S8"]
     tax_map = dict(zip(others, tax_group(others)))
@@ -480,16 +493,17 @@ def exact_post_tax_all_trials(model, time_horizon: int,
         _mark(stage_seconds, "emission", t0, dev)
         lot_cap = None
         if lot_method != "FIFO":
-            worst = max(max_buy_events(
-                *(e[:, :, cfg.TAXABLE_IDS.index(sid)] for e in emission))
+            worst = max(max_buy_events(*bridge_columns(
+                e[:, :, cfg.TAXABLE_IDS.index(sid)] for e in emission))
                 for sid in strategy_ids)
             lot_cap = max(256, -(-worst // 256) * 256)
         for gsids, assets in _bridge_groups(strategy_ids, n_here):
             cols = torch.as_tensor([cfg.TAXABLE_IDS.index(s) for s in gsids],
                                    device=dev)
             G = len(gsids)
-            stacked = [e[:, :, cols].reshape(e.shape[0], n_here * G)
-                       for e in emission]
+            stacked = bridge_columns(
+                e[:, :, cols].reshape(e.shape[0], n_here * G)
+                for e in emission)
             total, ok = bridge_activity_tax(
                 stacked, assets, time_horizon, income, tax_kw, lot_method,
                 lot_cap, stage_seconds)
@@ -574,7 +588,7 @@ def _exact_tax_via_replay(ctx: Dict, sid: str, n: int, time_horizon: int,
                                         anti[start:stop], apply_costs=True)
             cache[key] = [e if e.dtype == torch.int8 else e.to(dt)
                           for e in emission]
-        cols4 = [e[:, :, col] for e in cache[key]]
+        cols4 = bridge_columns(e[:, :, col] for e in cache[key])
         tax = bridge_tax(cols4, (0, 1) if sid == "S8" else (0,),
                          time_horizon, income, tax_kw)
         taxes.append(tax.cpu().numpy())

@@ -1,7 +1,7 @@
 """All 19 strategies over a path batch, with trade-journal emission.
 
 Port of ``letf_tpu/strategies/engine.py::run_strategies_batch``, plus
-``dca_schedule`` and ``withdrawal_schedule``. Without emission it is kernel
+``dca_schedule``, ``withdrawal_schedule`` and ``run_all``. Without emission it is kernel
 K4 (``ops/strategies.py``, channel mode) on any device, as the JAX
 package's production path runs ``pallas_strategies_run``; with emission it
 is the XLA scan of the general path, below. Quirks kept as the reference
@@ -38,6 +38,7 @@ from letf_tpu_torch.strategies.signals import (
     IDX_TMF,
     IDX_TQQQ,
     SignalSet,
+    compute_signals,
 )
 
 NS = cfg.N_STRATEGIES          # 19
@@ -400,3 +401,11 @@ def run_strategies_batch(path, sig: SignalSet, apply_costs: bool = True,
         tj_asset=torch.stack(
             [torch.full((S, B), a, dtype=torch.int8, device=dev)
              if isinstance(a, int) else a for _, _, _, a in cols], dim=-1))
+
+
+def run_all(path, apply_costs: bool = True, emit_trades: bool = False,
+            cashflows=None) -> StrategyResults:
+    """Convenience: compute signals then run the batched strategies."""
+    sig = compute_signals(path)
+    return run_strategies_batch(path, sig, apply_costs=apply_costs,
+                                emit_trades=emit_trades, cashflows=cashflows)

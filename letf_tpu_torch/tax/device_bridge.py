@@ -53,7 +53,10 @@ def replay_trades(tj_alloc, tj_value, tj_price, tj_asset):
     through the share-exact journal rule: target = alloc * value / price,
     trade iff |target - held| >= 0.001 shares, held -> target. Returns
     buy_sh and sell_sh [A2, S, B] (A2 = the bridge assets) and the floored
-    price [S, B]."""
+    price [S, B]. Everything downstream computes in the emission's float
+    dtype, the share coordinates included; the report's callers hand it
+    float64 columns, since a float32 coordinate near 10^7 shares is one
+    share apart."""
     S, B = tj_alloc.shape
     price = torch.clamp_min(tj_price, _PRICE_FLOOR)
     valid = ~torch.isnan(tj_alloc)

@@ -1,6 +1,7 @@
-"""Borrow-cost math (the port's copy of ``letf_tpu/utils/finance.py:18-41``):
-``calculate_daily_borrow_cost`` for a scalar rate and
-``get_borrow_cost_series`` over a frame's IRX column.
+"""Borrow-cost math and drawdown duration (the port's copy of
+``letf_tpu/utils/finance.py:18-54``): ``calculate_daily_borrow_cost`` for a
+scalar rate, ``get_borrow_cost_series`` over a frame's IRX column and
+``get_max_underwater_days`` of an equity curve.
 
 ``fill_missing_with_dynamic_factor`` serves only the network data route
 and waits with it (ROADMAP item 14).
@@ -32,3 +33,17 @@ def get_borrow_cost_series(df, leverage: float, spread: float) -> np.ndarray:
         return np.zeros(len(df))
     risk_free = df["IRX"] / 100.0
     return borrowed * (risk_free + spread) / 252.0
+
+
+def get_max_underwater_days(equity_curve) -> int:
+    """Longest run of days below the running high-water mark."""
+    ec = np.asarray(equity_curve, dtype=float)
+    if ec.size == 0:
+        return 0
+    hwm = np.maximum.accumulate(ec)
+    under = ec < hwm
+    best = run = 0
+    for u in under:
+        run = run + 1 if u else 0
+        best = max(best, run)
+    return int(best)

@@ -1,21 +1,24 @@
 """A pandas-free day frame: the port's stand-in for the DataFrame of the
-data and calibration layers.
+data and calibration layers and of the host strategy oracle.
 
 ``Frame`` holds 1-D columns (float64, bool or str) keyed by the
 reference's column names over a ``datetime64[D]`` index. The functions
-below are exactly the pandas operations those layers use, on float64
-numpy arrays:
+below are the pandas operations those layers use, on float64 numpy
+arrays:
 
-- ``rolling_mean`` / ``rolling_std``: ``Series.rolling(w, min_periods)``
-  ``.mean()`` / ``.std()``, by pandas' own online algorithms (Kahan-summed
-  adds and removes; Welford's variance with Kahan compensation), step for
-  step, so the results are pandas' bits, NaN and ``min_periods`` rules
-  included.
+- ``rolling_mean`` / ``rolling_sum`` / ``rolling_var`` / ``rolling_std``:
+  ``Series.rolling(w, min_periods)`` ``.mean()`` / ``.sum()`` / ``.var()``
+  / ``.std()``, by pandas 3.0's own online algorithms (Kahan-summed adds
+  and removes; Welford's variance with Kahan compensation and its
+  from-scratch recompute of an unstable window), step for step, so the
+  results are pandas' bits, NaN and ``min_periods`` rules included.
+  ``rolling_skew``: pandas 2's moments, a few ulps from pandas 3.0's.
 - ``ewm_std``: ``Series.ewm(span, adjust=False).std()``, pandas' weighted
   mean/covariance recurrence with its bias correction, step for step.
 - ``ffill``, ``bfill``, ``fillna``, ``interpolate_both``
   (``interpolate(limit_direction="both")``: linear in position, constant
-  beyond the ends), ``diff``, ``cumprod`` (NaN kept and skipped).
+  beyond the ends), ``diff``, ``cumprod`` (NaN kept and skipped),
+  ``shift``, ``pct_change``.
 - ``bdate_range``: ``pd.bdate_range`` with no holidays (``np.is_busday``).
 
 The two online algorithms are sequential Python loops over the days: a
@@ -150,50 +153,184 @@ def rolling_mean(x, window: int, min_periods: Optional[int] = None):
 
 def rolling_var(x, window: int, min_periods: Optional[int] = None,
                 ddof: int = 1):
-    """``Series.rolling(window, min_periods).var(ddof)``."""
+    """``Series.rolling(window, min_periods).var(ddof)``, pandas 3.0's
+    sliding rule step for step.
+
+    Adds and removes are Welford's updates with Kahan compensation (one
+    compensation for adds, one for removes). After every update pandas
+    3.0 compares the new sum of squared deviations with the old: when it
+    fell below 1000 machine epsilons of the old one (a large value left
+    the window, or rounding drove it negative), the day's window is
+    recomputed from scratch by fresh adds with both compensations reset.
+    A window that empties by removal is not a restart: the compensations
+    carry over. The result is ``ssqdm / (nobs - ddof)``, with no shortcut
+    for equal values or a single value.
+    """
     minp = max(window if min_periods is None else min_periods, 1)
     vals = np.asarray(x, np.float64).tolist()
     out = np.empty(len(vals))
     nobs = 0.0
     mean_x = ssqdm = comp_add = comp_rem = 0.0
-    same = 0
-    prev = vals[0] if vals else NaN
     for i, val in enumerate(vals):
-        if window <= 1:
-            nobs, same = 0.0, 0
-            mean_x = ssqdm = comp_add = comp_rem = 0.0
-            prev = val
-        elif i >= window:
-            old = vals[i - window]
-            if old == old:
+        lo = max(i - window + 1, 0)
+        if i == 0 or window <= 1:
+            unstable = True                 # a window with no overlap
+        else:
+            unstable = False
+            old = vals[i - window] if i >= window else NaN
+            if old == old:                  # remove the day leaving
+                prior = ssqdm
                 nobs -= 1
-                if nobs == 1:
-                    # One value left: the last one added, exactly.
-                    mean_x, ssqdm, comp_add, comp_rem = prev, 0.0, 0.0, 0.0
-                elif nobs:
+                if nobs:
                     prev_mean = mean_x - comp_rem
                     y = old - comp_rem
                     t = y - mean_x
                     comp_rem = t + mean_x - y
                     mean_x = mean_x - t / nobs
                     ssqdm = ssqdm - (old - prev_mean) * (old - mean_x)
+                    unstable = ssqdm < _RESTART * prior
                 else:
                     mean_x = ssqdm = 0.0
-        if val == val:
-            nobs += 1
-            same = same + 1 if val == prev else 1
-            prev = val
-            prev_mean = mean_x - comp_add
-            y = val - comp_add
-            t = y - mean_x
-            comp_add = t + mean_x - y
-            mean_x = mean_x + t / nobs
-            ssqdm = ssqdm + (val - prev_mean) * (val - mean_x)
+            if val == val:                  # add the day entering
+                prior = ssqdm
+                nobs += 1
+                prev_mean = mean_x - comp_add
+                y = val - comp_add
+                t = y - mean_x
+                comp_add = t + mean_x - y
+                mean_x = mean_x + t / nobs
+                ssqdm = ssqdm + (val - prev_mean) * (val - mean_x)
+                unstable |= ssqdm < _RESTART * prior
+        if unstable:                        # the window afresh
+            nobs = 0.0
+            mean_x = ssqdm = comp_add = comp_rem = 0.0
+            for v in vals[lo:i + 1]:
+                if v == v:
+                    nobs += 1
+                    prev_mean = mean_x - comp_add
+                    y = v - comp_add
+                    t = y - mean_x
+                    comp_add = t + mean_x - y
+                    mean_x = mean_x + t / nobs
+                    ssqdm = ssqdm + (v - prev_mean) * (v - mean_x)
         if nobs >= minp and nobs > ddof:
-            out[i] = 0.0 if (nobs == 1 or same >= nobs) \
-                else ssqdm / (nobs - ddof)
+            out[i] = ssqdm / (nobs - ddof)
         else:
             out[i] = NaN
+    return out
+
+
+_RESTART = 1e3 * float(np.finfo(np.float64).eps)
+
+
+def rolling_sum(x, window: int, min_periods: Optional[int] = None):
+    """``Series.rolling(window, min_periods).sum()``: Kahan-summed adds and
+    removes, a run of equal values read as ``value * nobs``."""
+    minp = window if min_periods is None else min_periods
+    vals = np.asarray(x, np.float64).tolist()
+    out = np.empty(len(vals))
+    nobs = same = 0
+    sum_x = comp_add = comp_rem = 0.0
+    prev = vals[0] if vals else NaN
+    for i, val in enumerate(vals):
+        if window <= 1:
+            nobs = same = 0
+            sum_x = comp_add = comp_rem = 0.0
+            prev = val
+        elif i >= window:
+            old = vals[i - window]
+            if old == old:
+                nobs -= 1
+                y = -old - comp_rem
+                t = sum_x + y
+                comp_rem = t - sum_x - y
+                sum_x = t
+        if val == val:
+            nobs += 1
+            y = val - comp_add
+            t = sum_x + y
+            comp_add = t - sum_x - y
+            sum_x = t
+            same = same + 1 if val == prev else 1
+            prev = val
+        if nobs == 0 == minp:
+            out[i] = 0.0
+        elif nobs >= minp:
+            out[i] = prev * nobs if same >= nobs else sum_x
+        else:
+            out[i] = NaN
+    return out
+
+
+def rolling_skew(x, window: int, min_periods: Optional[int] = None):
+    """``Series.rolling(window, min_periods).skew()`` by pandas 2's online
+    moments: the series shifted by its rounded mean (when its minimum lies
+    within 1e5 below it), Kahan-summed first, second and third powers, 0
+    on a run of equal values and NaN below 3 values or a variance of at
+    most 1e-14. pandas 3.0's sliding skew is another rule, not matched:
+    the two agree to a few ulps (``tests/test_torch_data.py``), and the
+    host oracle reads the skew only through comparisons with 0, 0.5 and
+    -0.5."""
+    minp = max(window if min_periods is None else min_periods, 3)
+    raw = np.asarray(x, np.float64)
+    out = np.empty(len(raw))
+    ok = raw[raw == raw]
+    vals = raw.tolist()
+    shifted = vals
+    if len(ok):
+        mean_val = 0.0
+        for v in ok.tolist():
+            mean_val += v
+        mean_val /= len(ok)
+        if float(ok.min()) - mean_val > -1e5:
+            shifted = (raw - round(mean_val)).tolist()
+    nobs = same = 0
+    sx = sxx = sxxx = 0.0
+    ca = [0.0, 0.0, 0.0]
+    cr = [0.0, 0.0, 0.0]
+    prev = NaN
+
+    def kahan(total, term, comp, k):
+        y = term - comp[k]
+        t = total + y
+        comp[k] = t - total - y
+        return t
+
+    for i in range(len(vals)):
+        if i == 0 or window <= 1:
+            nobs = same = 0
+            sx = sxx = sxxx = 0.0
+            ca[:] = [0.0, 0.0, 0.0]
+            cr[:] = [0.0, 0.0, 0.0]
+            prev = vals[i]
+        elif i >= window:
+            old = shifted[i - window]
+            if old == old:
+                nobs -= 1
+                sx = kahan(sx, -old, cr, 0)
+                sxx = kahan(sxx, -(old * old), cr, 1)
+                sxxx = kahan(sxxx, -(old * old * old), cr, 2)
+        val = shifted[i]
+        if val == val:
+            nobs += 1
+            sx = kahan(sx, val, ca, 0)
+            sxx = kahan(sxx, val * val, ca, 1)
+            sxxx = kahan(sxxx, val * val * val, ca, 2)
+            same = same + 1 if val == prev else 1
+            prev = val
+        out[i] = NaN
+        if nobs >= minp:
+            dn = float(nobs)
+            a = sx / dn
+            b = sxx / dn - a * a
+            c = sxxx / dn - a * a * a - 3 * a * b
+            if nobs < 3:
+                pass
+            elif same >= nobs:
+                out[i] = 0.0
+            elif b > 1e-14:
+                r = math.sqrt(b)
+                out[i] = (math.sqrt(dn * (dn - 1.0)) * c) / ((dn - 2) * r * r * r)
     return out
 
 
@@ -317,3 +454,22 @@ def cumprod(x):
     out = np.cumprod(np.where(nan, 1.0, x))
     out[nan] = NaN
     return out
+
+
+def shift(x, periods: int = 1):
+    """``Series.shift(periods)`` of a float series: NaN fills the gap."""
+    x = np.asarray(x, np.float64)
+    out = np.full_like(x, NaN)
+    k = min(abs(periods), len(x))
+    if periods >= 0:
+        out[k:] = x[:len(x) - k]
+    else:
+        out[:len(x) - k] = x[k:]
+    return out
+
+
+def pct_change(x, periods: int = 1):
+    """``Series.pct_change(periods)`` (pandas 3.0: no fill)."""
+    x = np.asarray(x, np.float64)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        return x / shift(x, periods) - 1.0

@@ -24,7 +24,6 @@ import json
 import math
 
 import pytest
-import torch
 
 from letf_tpu import historical as jhist
 from letf_tpu import integration as jintegration
@@ -41,6 +40,7 @@ from letf_tpu_torch import config as tcfg
 from letf_tpu_torch import ui, validation
 from letf_tpu_torch.parallel import mc_runner
 from letf_tpu_torch.tax import lot_selection, marginal, regimes, vectorized
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 CACHES = ("DATA_CACHE", "REGIME_MODEL_CACHE", "CORRELATION_CACHE",
           "VALIDATION_RESULTS", "JOINT_RETURN_MODEL_CACHE",
@@ -98,12 +98,8 @@ def test_signature_matches_the_reference(fn, ref_mod, extra):
 @pytest.fixture(scope="module")
 def cache(tmp_path_factory):
     """The port's caches in a temporary directory, 8 trials a horizon, the
-    zero-drift invariant at 256 paths, one torch thread (the calibration's
-    thousands of small float64 ops oversubscribe the cores beside other
-    test workers)."""
+    zero-drift invariant at 256 paths."""
     tmp = tmp_path_factory.mktemp("letf_tpu_torch_cache")
-    n_threads = torch.get_num_threads()
-    torch.set_num_threads(1)
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(tcfg, "CACHE_DIR", tmp)
         for name in CACHES:
@@ -115,7 +111,6 @@ def cache(tmp_path_factory):
                                      n_sims=256))
         mp.setenv("LETF_NON_INTERACTIVE", "1")
         yield tmp
-    torch.set_num_threads(n_threads)
 
 
 def assert_close(got, ref, path=""):

@@ -50,6 +50,7 @@ from letf_tpu_torch.ops import compose_strategies as k3
 from letf_tpu_torch.ops import path_engine as tpe
 from letf_tpu_torch.ops import rng
 from letf_tpu_torch.parallel import mc_runner as tmc
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 N_DAYS = 756
 SERIES = ("SPY_Ret", "QQQ_Ret", "TLT_Ret", "VIX", "IRX")

@@ -21,6 +21,7 @@ from letf_tpu.tax import device_bridge as jbridge
 from letf_tpu.tax import vectorized as jvec
 from letf_tpu_torch.parallel import mc_runner
 from letf_tpu_torch.tax import device_bridge, vectorized
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 N, YEARS = 16, 3
 

@@ -28,24 +28,12 @@ from letf_tpu_torch import config as tcfg
 from letf_tpu_torch.models.params import build_sim_model, from_jax_model
 from letf_tpu_torch.ops import fitting as tfit
 from letf_tpu_torch.utils.frame import Frame
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 CACHES = ("DATA_CACHE", "REGIME_MODEL_CACHE", "CORRELATION_CACHE",
           "JOINT_RETURN_MODEL_CACHE", "FUNDING_MODEL_CACHE",
           "TRACKING_RESIDUAL_CACHE", "STRESS_STATE_CACHE")
 GARCH = ("garch_alpha", "garch_beta")
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    """One torch thread for the module. The fits run thousands of small
-    float64 ops; with torch's default of a thread a core, concurrent test
-    workers oversubscribe the cores and the spinning OpenMP threads slow
-    each fit ~40x (3.2 s alone, over 120 s beside two more such
-    processes on 8 cores; 4.4 s each with one thread)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module", autouse=True)

@@ -10,10 +10,10 @@ invariant runs at 256 paths here: it has its own test at the reference's
 import functools
 
 import pytest
-import torch
 
 from letf_tpu_torch import cli, validation
 from letf_tpu_torch import config as tcfg
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 CACHES = ("DATA_CACHE", "REGIME_MODEL_CACHE", "CORRELATION_CACHE",
           "VALIDATION_RESULTS", "JOINT_RETURN_MODEL_CACHE",
@@ -24,12 +24,8 @@ CACHES = ("DATA_CACHE", "REGIME_MODEL_CACHE", "CORRELATION_CACHE",
 @pytest.fixture(scope="module")
 def cache(tmp_path_factory):
     """The port's caches in a temporary directory, 8 trials a horizon, the
-    zero-drift invariant at 256 paths, one torch thread (the calibration's
-    thousands of small float64 ops oversubscribe the cores beside other
-    test workers)."""
+    zero-drift invariant at 256 paths."""
     tmp = tmp_path_factory.mktemp("letf_tpu_torch_cache")
-    n_threads = torch.get_num_threads()
-    torch.set_num_threads(1)
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(tcfg, "CACHE_DIR", tmp)
         for name in CACHES:
@@ -41,7 +37,6 @@ def cache(tmp_path_factory):
                                      n_sims=256))
         mp.setenv("LETF_NON_INTERACTIVE", "1")
         yield tmp
-    torch.set_num_threads(n_threads)
 
 
 def test_cli_default_branch_on_the_cpu(cache, capsys):

@@ -17,6 +17,7 @@ from letf_tpu.models.params import default_sim_model
 from letf_tpu.ops import pallas_compose as pc
 from letf_tpu_torch.models import params as tparams
 from letf_tpu_torch.ops import compose
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 B, S = 1024, 126
 SEED_WORDS = [9, 11]

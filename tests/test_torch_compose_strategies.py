@@ -19,6 +19,7 @@ from letf_tpu.strategies.engine import dca_schedule
 from letf_tpu_torch.models import params as tparams
 from letf_tpu_torch.ops import compose_strategies as k3
 from letf_tpu_torch.utils.device import slab_to_tb, tb_to_slab
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 def market_inputs(B, S, seed):

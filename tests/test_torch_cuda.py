@@ -422,16 +422,15 @@ def test_sort_bridge_kernel_bitwise(dev, kind):
     g = torch.Generator(device=dev).manual_seed(3)
     R, half = 300, 700
     N = 2 * half
-    key = torch.round(torch.randn((N, R), generator=g, device=dev).abs()
-                      * 4) / 4
+    f64 = dict(generator=g, device=dev, dtype=torch.float64)
+    key = torch.round(torch.randn((N, R), **f64).abs() * 4) / 4
     key[half:] = torch.sort(key[half:], dim=0).values
     if kind == "merge":
         key[:half] = torch.sort(key[:half], dim=0).values
     pos = torch.arange(N, device=dev, dtype=torch.int32)
     sec = torch.where(pos >= half, pos | (1 << 24), pos)[:, None].expand(
         N, R).contiguous()
-    pays = tuple(torch.randn((N, R), generator=g, device=dev)
-                 for _ in range(4))
+    pays = tuple(torch.randn((N, R), **f64) for _ in range(4))
     n0 = k7.LAUNCHES
     got = k7.sort_bridge(key, sec, pays, kind=kind)
     assert k7.LAUNCHES == n0 + 1
@@ -450,8 +449,8 @@ def test_sort_bridge_kernel_shapes(dev, R, half, n_pay, kind):
 
     g = torch.Generator(device=dev).manual_seed(R + half)
     N = 2 * half
-    key = torch.round(torch.randn((N, R), generator=g, device=dev).abs()
-                      * 4) / 4
+    f64 = dict(generator=g, device=dev, dtype=torch.float64)
+    key = torch.round(torch.randn((N, R), **f64).abs() * 4) / 4
     key[::7] = torch.where(key[::7] > 1, float("inf"), key[::7])
     key[half:] = torch.sort(key[half:], dim=0).values
     if kind == "merge":
@@ -459,8 +458,7 @@ def test_sort_bridge_kernel_shapes(dev, R, half, n_pay, kind):
     pos = torch.arange(N, device=dev, dtype=torch.int32)
     sec = torch.where(pos >= half, pos | (1 << 24), pos)[:, None].expand(
         N, R).contiguous()
-    pays = tuple(torch.randn((N, R), generator=g, device=dev)
-                 for _ in range(n_pay))
+    pays = tuple(torch.randn((N, R), **f64) for _ in range(n_pay))
     hz = kind == "valley"
     for p in pays if hz else ():
         p[:half] = 0.0
@@ -471,18 +469,19 @@ def test_sort_bridge_kernel_shapes(dev, R, half, n_pay, kind):
         assert torch.equal(a, b)
 
 
-def test_sort_bridge_kernel_int32_key_without_sec(dev):
-    """An int32 primary and no secondary: equal keys keep the first
+def test_sort_bridge_kernel_int64_key_without_sec(dev):
+    """An int64 primary and no secondary: equal keys keep the first
     half first."""
     from letf_tpu_torch.ops import sort_bridge as k7
 
     g = torch.Generator(device=dev).manual_seed(9)
     R, half = 130, 300
     key = torch.randint(0, 40, (2 * half, R), generator=g, device=dev,
-                        dtype=torch.int32)
+                        dtype=torch.int64)
     key[:half] = torch.sort(key[:half], dim=0).values
     key[half:] = torch.sort(key[half:], dim=0).values
-    pay = torch.randn((2 * half, R), generator=g, device=dev)
+    pay = torch.randn((2 * half, R), generator=g, device=dev,
+                      dtype=torch.float64)
     got = k7.sort_bridge(key, None, (pay,), kind="merge")
     for a, b in zip(got, k7.sort_bridge_plain(key, None, (pay,))):
         assert torch.equal(a, b)
@@ -494,7 +493,7 @@ def test_sort_bridge_kernel_raises_beyond_its_limit(dev):
     from letf_tpu_torch.ops import sort_bridge as k7
 
     half = 14_529
-    key = torch.zeros((2 * half, 2), device=dev)
+    key = torch.zeros((2 * half, 2), dtype=torch.float64, device=dev)
     sec = torch.zeros((2 * half, 2), dtype=torch.int32, device=dev)
     n0 = k7.LAUNCHES
     for kind in ("merge", "valley"):
@@ -509,9 +508,9 @@ def test_wash_kernel_bitwise(dev):
     g = torch.Generator(device=dev).manual_seed(4)
 
     def sparse(p, scale):
-        u = torch.rand((S, B), generator=g, device=dev)
-        return torch.where(u < p, torch.rand((S, B), generator=g,
-                                             device=dev) * scale, 0.0)
+        f64 = dict(generator=g, device=dev, dtype=torch.float64)
+        u = torch.rand((S, B), **f64)
+        return torch.where(u < p, torch.rand((S, B), **f64) * scale, 0.0)
 
     buy, sell = sparse(0.25, 6.0), sparse(0.15, 8.0)
     loss = torch.where(sell > 0, sparse(0.5, 100.0), 0.0)
@@ -523,7 +522,7 @@ def test_wash_kernel_bitwise(dev):
 
 
 def wash_edge_case(name, S, B, seed):
-    """[S, B] float32 (loss, sell, buy) of one K8 edge case (the CPU tests'
+    """[S, B] float64 (loss, sell, buy) of one K8 edge case (the CPU tests'
     cases in tests/test_torch_wash.py, at any trial count)."""
     rs = np.random.default_rng(seed)
     p_buy, p_loss = {"every_day_a_loss": (0.25, 1.0),
@@ -532,7 +531,7 @@ def wash_edge_case(name, S, B, seed):
     sell = rs.gamma(2.0, 4.0, (S, B))
     loss = np.where(rs.random((S, B)) < p_loss, rs.gamma(2.0, 50.0, (S, B)),
                     0.0)
-    at = np.float32(0.001)
+    at = np.float64(0.001)
     if name == "buys_at_the_threshold":
         pick = rs.integers(0, 3, (S, B))
         buy = np.where(pick == 0, at,
@@ -556,7 +555,7 @@ def wash_edge_case(name, S, B, seed):
             x = b % 60
             buy[[x, x + 64], b] = 3.0
             loss[[x + 1, x + 34], b] = 7.0
-    return [torch.as_tensor(a, dtype=torch.float32) for a in (loss, sell, buy)]
+    return [torch.as_tensor(a, dtype=torch.float64) for a in (loss, sell, buy)]
 
 
 WASH_EDGE = {"one_day": 1, "shorter_than_the_window": 45, "ragged_days": 97,

@@ -7,11 +7,16 @@
   pandas): the generated and reconstructed columns bit for bit, the
   rolling and EWM indicator columns within rtol 1e-12.
 - The frame operations of ``utils/frame.py`` equal pandas' on series with
-  NaNs made by hypothesis: the fills, diff and cumprod exactly; rolling
-  means and EWM std exactly; rolling std exactly on NaN-free series and
-  within rtol 1e-12 (atol 1e-12 of the series' scale) with NaNs, where
-  pandas 3.0's restart of a window left with one value is matched but its
-  compensation terms are not.
+  NaNs made by hypothesis: the fills, diff, cumprod, shift and pct_change
+  exactly; rolling means, sums, variances and EWM std exactly.
+- The rolling variance equals pandas 3.0's bit for bit on a seeded fuzz of
+  3,000 short series with mixed magnitudes (values from {0, 1, 1e-3,
+  2.5e-4, 0.97, -0.5, 1e7, 3.3} or rounded normals, windows 2-5; a
+  sliding Welford rule without the recompute misses 387 of them), in six
+  parametrised chunks, and on three named examples; the host strategy
+  oracle's other frame operations on the same fuzz; ``rolling_skew`` (pandas 2's moments, not
+  pandas 3.0's rule) within 1e-12 of pandas on return-like series with
+  the same NaN pattern.
 - The network loaders return None where their packages cannot be
   imported, and raise naming ROADMAP item 14 where they can.
 Every cache path of the port points at a temporary directory.
@@ -30,6 +35,7 @@ from letf_tpu import data as jdata
 from letf_tpu_torch import config as tcfg
 from letf_tpu_torch import data as tdata
 from letf_tpu_torch.utils import frame as F
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 ROOT = Path(__file__).resolve().parents[1]
 COMMITTED = ROOT / "letf_tpu_cache_v1" / "historical_data.pkl"
@@ -211,12 +217,12 @@ def test_frame_ops_equal_pandas(values, window, min_periods, scale):
     same(F.rolling_mean(x, window, min_periods),
          s.rolling(window, min_periods=min_periods).mean().to_numpy())
     same(F.ewm_std(x, 20), s.ewm(span=20, adjust=False).std().to_numpy())
-    std = F.rolling_std(x, window, min_periods)
-    want = s.rolling(window, min_periods=min_periods).std().to_numpy()
-    if np.isnan(x).any():
-        np.testing.assert_allclose(std, want, rtol=1e-12, atol=1e-12 * scale)
-    else:
-        same(std, want)
+    same(F.rolling_std(x, window, min_periods),
+         s.rolling(window, min_periods=min_periods).std().to_numpy())
+    same(F.rolling_sum(x, window, min_periods),
+         s.rolling(window, min_periods=min_periods).sum().to_numpy())
+    same(F.shift(x), s.shift(1).to_numpy())
+    same(F.pct_change(x, 5), s.pct_change(5).to_numpy())
     same(F.ffill(x), s.ffill().to_numpy())
     same(F.bfill(x), s.bfill().to_numpy())
     same(F.fillna(x, 0.5), s.fillna(0.5).to_numpy())
@@ -240,3 +246,105 @@ def test_rolling_std_long_series_bitwise():
         np.testing.assert_array_equal(
             F.rolling_mean(x, w, mp),
             s.rolling(w, min_periods=mp).mean().to_numpy())
+
+
+_POOL = (0.0, 1.0, 1e-3, 2.5e-4, 0.97, -0.5, 1e7, 3.3)
+_FUZZ_CHUNKS, _FUZZ_PER_CHUNK = 6, 500
+
+
+def _fuzz_series(chunk):
+    """Chunk ``chunk`` of the 3,000-series fuzz: 3-12 values drawn from
+    _POOL or rounded normals of a random decade, a window of 2-5."""
+    rng = np.random.default_rng([2026, chunk])
+    for _ in range(_FUZZ_PER_CHUNK):
+        size = int(rng.integers(3, 13))
+        if rng.random() < 0.5:
+            x = rng.choice(_POOL, size)
+        else:
+            x = np.round(rng.normal(size=size)
+                         * 10.0 ** int(rng.integers(-3, 4)),
+                         int(rng.integers(0, 5)))
+        yield x, int(rng.integers(2, 6))
+
+
+@pytest.mark.parametrize("chunk", range(_FUZZ_CHUNKS))
+def test_rolling_var_fuzz_equals_pandas(chunk):
+    bad = [(x.tolist(), w) for x, w in _fuzz_series(chunk)
+           if not np.array_equal(F.rolling_var(x, w),
+                                 pd.Series(x).rolling(w).var().to_numpy(),
+                                 equal_nan=True)]
+    assert not bad, (len(bad), bad[:3])
+
+
+@pytest.mark.parametrize("chunk", range(_FUZZ_CHUNKS))
+def test_frame_helpers_fuzz_equal_pandas(chunk):
+    """The host strategy oracle's frame operations on the same fuzz:
+    shift, rolling sums, rolling means and stds with min_periods 1 then
+    bfill().fillna(0), and the where-masked rolling mean of S8's RSI."""
+    same = np.testing.assert_array_equal
+    for x, w in _fuzz_series(chunk):
+        s = pd.Series(x)
+        same(F.shift(x), s.shift(1).to_numpy())
+        same(F.rolling_sum(x, w, 1), s.rolling(w, min_periods=1).sum()
+             .to_numpy())
+        same(F.fillna(F.bfill(F.rolling_mean(x, w, 1)), 0),
+             s.rolling(w, min_periods=1).mean().bfill().fillna(0).to_numpy())
+        same(F.fillna(F.bfill(F.rolling_std(x, w, 1)), 0),
+             s.rolling(w, min_periods=1).std().bfill().fillna(0).to_numpy())
+        same(F.rolling_mean(np.where(x > 0, x, 0.0), w),
+             s.where(s > 0, 0).rolling(w).mean().to_numpy())
+
+
+@pytest.mark.parametrize("values, want_last", [
+    # pandas' bits of the window [0, 0, 2.5e-4].
+    ([1e-3, 0.0, 0.0, 2.5e-4], 2.0833333333333338e-08),
+    # 1e7 leaves the window: pandas recomputes [2.5e-4, 1, 3.3] afresh.
+    ([1e7, 2.5e-4, 1.0, 3.3], 2.862975020833333),
+    # Three equal values: no equal-values shortcut to 0.
+    ([0.0, 0.97, 1.0, 1.0, 1.0], 9.107298248878238e-17),
+], ids=["small_values", "large_value_leaves", "equal_values"])
+def test_rolling_var_named_examples(values, want_last):
+    x = np.asarray(values)
+    want = pd.Series(x).rolling(3).var().to_numpy()
+    assert want[-1] == want_last
+    np.testing.assert_array_equal(F.rolling_var(x, 3), want)
+    np.testing.assert_array_equal(F.rolling_std(x, 3),
+                                  pd.Series(x).rolling(3).std().to_numpy())
+
+
+def test_host_oracle_frame_ops_equal_pandas():
+    """The pandas expressions of the host strategy oracle on return and
+    price series with a NaN head: rolling means and stds with min_periods
+    then bfill().fillna(0), the where-masked rolling means of S8's RSI
+    (-0.0 included), lagged rolling sums, pct_change of a lagged std;
+    the rolling skew within 1e-12 with pandas' NaN pattern."""
+    rng = np.random.default_rng(11)
+    r = rng.standard_t(4, 1500) * 0.012
+    r[:3] = np.nan
+    s = pd.Series(r)
+    price = pd.Series(np.cumprod(1 + np.nan_to_num(r)) * 100)
+    same = np.testing.assert_array_equal
+    same(F.fillna(F.bfill(F.rolling_std(r, 20, 5)), 0),
+         s.rolling(20, min_periods=5).std().bfill().fillna(0).to_numpy())
+    same(F.fillna(F.bfill(F.rolling_mean(r, 20, 5)), 0),
+         s.rolling(20, min_periods=5).mean().bfill().fillna(0).to_numpy())
+    delta = F.diff(price.to_numpy())
+    pdelta = price.diff()
+    same(F.rolling_mean(np.where(delta > 0, delta, 0.0), 14),
+         pdelta.where(pdelta > 0, 0).rolling(14).mean().to_numpy())
+    same(F.rolling_mean(-np.where(delta < 0, delta, 0.0), 14),
+         (-pdelta.where(pdelta < 0, 0)).rolling(14).mean().to_numpy())
+    neg = np.where(r < 0, r, 0.0)
+    same(F.shift(F.rolling_std(neg, 20, 1)),
+         s.where(s < 0, 0).rolling(20, min_periods=1).std().shift(1)
+         .to_numpy())
+    same(F.shift(F.rolling_sum(r, 126, 1)),
+         s.rolling(126, min_periods=1).sum().shift(1).to_numpy())
+    vs = F.shift(F.rolling_std(r, 20, 1))
+    same(F.pct_change(vs, 5),
+         s.rolling(20, min_periods=1).std().shift(1).pct_change(5).to_numpy())
+    got = F.rolling_skew(r, 60, 1)
+    want = s.rolling(60, min_periods=1).skew().to_numpy()
+    same(np.isnan(got), np.isnan(want))
+    ok = ~np.isnan(want)
+    np.testing.assert_allclose(got[ok], want[ok], rtol=0, atol=1e-12)

@@ -12,6 +12,7 @@ import pytest
 from letf_tpu import diagnose as jdiag
 from letf_tpu_torch import diagnose as tdiag
 from letf_tpu_torch.models.params import from_jax_model
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 CASES = (("diagnose_pipeline", dict(years=1, n_trials=8)),
          ("diagnose_letf_drag", dict(years=2)),

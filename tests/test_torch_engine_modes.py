@@ -1,6 +1,7 @@
 """The port's per-trial institutional engine and the XLA-only batched routes
 against ``letf_tpu/ops/path_engine.py``, ``letf_tpu/ops/path_batched.py``
-and the float64 NumPy oracle (``letf_tpu/oracle.py``), on the CPU in
+and the port's float64 NumPy oracle (``letf_tpu_torch/oracle.py``, held
+to the JAX package's in tests/test_torch_oracle.py), on the CPU in
 float64; and the port's ``path_engine`` / ``generate_paths_batched``
 signatures against the reference's.
 
@@ -23,14 +24,15 @@ import numpy as np
 import pytest
 import torch
 
-from letf_tpu import oracle
 from letf_tpu.models.params import default_sim_model
 from letf_tpu.ops import path_batched as jpb
 from letf_tpu.ops import path_engine as jpe
+from letf_tpu_torch import oracle
 from letf_tpu_torch.models.params import from_jax_model, from_numpy
 from letf_tpu_torch.ops import path_batched as tpb
 from letf_tpu_torch.ops import path_engine as tpe
 from letf_tpu_torch.ops import rng
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 B, S, BUF, SEED = 6, 90, 60, 42
 IDS = np.arange(B) // 2
@@ -42,6 +44,12 @@ DRAW_RTOL, DRAW_ATOL = 4e-14, 1e-15
 def models():
     jm = default_sim_model()
     return jm, from_numpy(from_jax_model(jm), "cpu", torch.float64)
+
+
+@pytest.fixture(scope="module")
+def port_model():
+    """The port's numpy model tree, the oracle's input."""
+    return from_jax_model(default_sim_model())
 
 
 @pytest.fixture(scope="module")
@@ -189,9 +197,10 @@ def test_institutional_draws_match_jax(models, jax_innov):
                                   got.u_chi[:, 1].numpy())
 
 
-def test_institutional_path_matches_jax_and_oracle(models, jax_innov):
+def test_institutional_path_matches_jax_and_oracle(models, port_model,
+                                                   jax_innov):
     """On the JAX draws, the port's path equals the JAX engine's and the
-    oracle's (every trial) within 1e-12."""
+    port's oracle's (every trial) within 1e-12."""
     jm, mt = models
     innov = carried(jax_innov)
     tp = tpe.path_from_innovations(mt, innov, S)
@@ -199,7 +208,7 @@ def test_institutional_path_matches_jax_and_oracle(models, jax_innov):
         jm, inn, S)))(jax_innov)
     paths_close(tp, jp, 1e-12, 1e-10, "jax engine")
     for b in range(B):
-        orc = oracle.oracle_path(jm, trial(innov, b), S)
+        orc = oracle.oracle_path(port_model, trial(innov, b), S)
         close(tp.etf_ret[:, :, b].numpy().T, orc["etf_ret"], 0.0, 1e-12,
               f"oracle etf {b}")
         close(tp.vix[:, b].numpy(), orc["vix"], 0.0, 1e-10, f"oracle vix {b}")
@@ -211,17 +220,17 @@ def test_institutional_path_matches_jax_and_oracle(models, jax_innov):
                                    dict(use_funding_model=False,
                                         use_stress=False)],
                          ids=["no_moment_matching", "no_funding_no_stress"])
-def test_long_horizon_and_switches_match_oracle(models, flags):
+def test_long_horizon_and_switches_match_oracle(models, port_model, flags):
     """The port's own draws over 2 years + a 1-year buffer (trial 3, as
     tests/test_path_engine.py:47 runs it) against the oracle on the same
     draws, with each switch: the JAX package's long-horizon criterion,
     atol 2e-6 on returns and 1e-3 on VIX (here float64 on both sides, so
     far tighter in fact)."""
-    jm, mt = models
+    _, mt = models
     innov = tpe.draw_innovations(mt, rng.key(SEED), torch.tensor([3]),
                                  torch.tensor([False]), 504, 252)
     tp = tpe.path_from_innovations(mt, innov, 504, **flags)
-    orc = oracle.oracle_path(jm, trial(innov, 0), 504, **flags)
+    orc = oracle.oracle_path(port_model, trial(innov, 0), 504, **flags)
     close(tp.etf_ret[:, :, 0].numpy().T, orc["etf_ret"], 0.0, 2e-6)
     close(tp.vix[:, 0].numpy(), orc["vix"], 0.0, 1e-3)
     np.testing.assert_array_equal(tp.regime[:, 0].numpy(), orc["regime"])

@@ -23,6 +23,7 @@ from letf_tpu.tax import device_bridge as jax_bridge
 from letf_tpu_torch import reporting
 from letf_tpu_torch.parallel import mc_runner
 from letf_tpu_torch.tax import device_bridge as bridge
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 N, SEED = 16, 9
 PCTS = (10, 25, 50, 75, 90)

@@ -26,6 +26,7 @@ from test_torch_exact_tax import (
     assert_tables_close,
     port_chunk,
 )
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 N = 8
 

@@ -26,6 +26,7 @@ import torch
 from letf_tpu.ops import pallas_path as jpp
 from letf_tpu.ops import reductions as jred
 from letf_tpu_torch.ops import gbm, reductions, rng
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 MU, SIGMA = 0.10 / 252, 0.24 / math.sqrt(252)
 COST = 0.0086 / 252

@@ -34,6 +34,7 @@ from letf_tpu_torch.ops.slab_chunk import slab_chunk_summaries
 from letf_tpu_torch.strategies import engine as teng
 from letf_tpu_torch.strategies.engine import run_strategies_batch
 from letf_tpu_torch.strategies.signals import compute_signals
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 B, SIM, BUF, SEED = 1024, 126, 126, 7
 

@@ -15,6 +15,7 @@ from hypothesis import strategies as hst
 
 from letf_tpu.tax import engine as jengine
 from letf_tpu_torch.tax import engine
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 STRATEGIES = list(engine.CapitalLossUsageStrategy)
 

@@ -8,8 +8,7 @@ and a pandas DataFrame built from its columns.
 - The new frame operations against pandas: ``df[~df[flag]]`` (a boolean
   ``take``), ``iloc`` slices (``take`` of a slice) and
   ``rolling(20, min_periods=5).std().bfill().fillna(0)`` on a series with
-  NaN gaps (rtol 1e-12: the port's rolling variance restarts its
-  compensation after a gap).
+  NaN gaps, bit for bit.
 - ``infer_regime_from_vix_batched`` against the JAX package's vmapped
   ``infer_regime_from_vix_jax``: regimes exact in float64 and float32.
 - ``backtest_strategies_on_history`` (1 y, the last 24 monthly windows):
@@ -22,6 +21,9 @@ and a pandas DataFrame built from its columns.
   ``compare_simulated_vs_synthetic_historical`` on the same results list:
   every score, table and rank exactly the JAX package's but the strategy
   backtests' (window counts exact, medians within 5e-5).
+- ``run_strategy_on_history`` on the history's first 1,000 rows: each
+  strategy's equity curve and trade count bitwise the JAX package's (the
+  host strategy oracle on both sides, regimes inferred from VIX).
 - ``run_institutional_sanity_checks`` and
   ``run_rolling_oos_calibration_backtest``: the checks equal; the
   out-of-sample numbers within rtol 1e-9 (both fit in float64).
@@ -53,6 +55,7 @@ from letf_tpu_torch import historical, ui, validation
 from letf_tpu_torch.data import fetch_historical_data
 from letf_tpu_torch.utils import frame
 from letf_tpu_torch.utils.regime import infer_regime_from_vix_batched
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 CACHES = ("DATA_CACHE", "REGIME_MODEL_CACHE", "CORRELATION_CACHE",
           "VALIDATION_RESULTS", "JOINT_RETURN_MODEL_CACHE",
@@ -100,7 +103,7 @@ def test_frame_operations_equal_pandas(history):
     got = frame.fillna(frame.bfill(frame.rolling_std(x, 20, 5)), 0.0)
     ref = (pd.Series(x).rolling(20, min_periods=5).std().bfill()
            .fillna(0).to_numpy())
-    np.testing.assert_allclose(got, ref, rtol=1e-12, atol=0)
+    np.testing.assert_array_equal(got, ref)
     ok = ~np.isnan(real["SPY_Ret"])
     np.testing.assert_array_equal(
         frame.fillna(frame.bfill(frame.rolling_std(real["SPY_Ret"][ok], 20,
@@ -238,9 +241,14 @@ def test_comparisons_equal_the_reference(history):
             jhist.calculate_rolling_cagrs_all_data(pdf, "SSO", h))
 
 
-def test_run_strategy_on_history_raises(history):
-    with pytest.raises(NotImplementedError, match="ROADMAP item 16"):
-        historical.run_strategy_on_history(history[0], "S4")
+@pytest.mark.parametrize("sid", ["S4", "S7", "S8", "S17", "S19"])
+def test_run_strategy_on_history_equals_the_reference(history, sid):
+    df, pdf = history
+    ec, nt = historical.run_strategy_on_history(df.take(slice(0, 1000)), sid)
+    jec, jnt = jhist.run_strategy_on_history(pdf.iloc[:1000], sid)
+    assert len(ec) == 1000 and np.isfinite(ec).all()
+    np.testing.assert_array_equal(ec, jec.to_numpy())
+    assert nt == jnt
 
 
 def committed(name):

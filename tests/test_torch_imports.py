@@ -77,7 +77,8 @@ def test_port_imports_nothing_of_jax_in_a_fresh_interpreter():
     assert "letf_tpu_torch.ops.strategies" in MODULES
     assert "letf_tpu_torch.ops.gbm" in MODULES
     for m in ("calibration", "data", "runner", "cli", "utils.frame",
-              "models.bootstrap", "diagnose"):
+              "models.bootstrap", "diagnose", "oracle", "strategies.host",
+              "tqqq", "income", "utils.finance", "utils.profiling"):
         assert f"letf_tpu_torch.{m}" in MODULES
 
 

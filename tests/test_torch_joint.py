@@ -11,6 +11,7 @@ from letf_tpu.ops.pallas_joint import _pack_params, pallas_joint_generate
 from letf_tpu_torch.models import params as tparams
 from letf_tpu_torch.ops import joint
 from letf_tpu_torch.utils.device import slab_to_tb
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 def test_joint_plain_matches_pallas_interpret():

@@ -18,6 +18,7 @@ from letf_tpu.parallel import mc_runner as jmc
 from letf_tpu_torch import config as tcfg
 from letf_tpu_torch.ops import compose_strategies as k3
 from letf_tpu_torch.parallel import mc_runner as tmc
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 N, YEARS, SEED = 32, 1, 4
 KW = dict(num_simulations=N, seed=SEED, chunk_size=N)

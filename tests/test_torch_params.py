@@ -21,6 +21,7 @@ from letf_tpu.ops.pallas_compose import (
 from letf_tpu.ops.pallas_joint import _pack_params
 from letf_tpu_torch import config as tcfg
 from letf_tpu_torch.models import params as tparams
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 CALIBRATION = {
     "transition_matrix": [[0.97, 0.03], [0.05, 0.95]],

@@ -20,6 +20,7 @@ from letf_tpu_torch.models.bootstrap import build_bootstrap_pools
 from letf_tpu_torch.models.params import from_jax_model, from_numpy
 from letf_tpu_torch.ops import path_engine as tpe
 from letf_tpu_torch.ops import rng
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 B, S, BUF, SEED = 48, 126, 126, 3
 

@@ -15,6 +15,7 @@ from letf_tpu.ops import rng as jrng
 from letf_tpu_torch.models.params import from_numpy
 from letf_tpu_torch.ops import path_batched as tpb
 from letf_tpu_torch.ops import rng
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 B = 1024
 

@@ -42,6 +42,7 @@ from letf_tpu_torch import config as tcfg
 from letf_tpu_torch import reporting
 from letf_tpu_torch.data import generate_synthetic_history
 from letf_tpu_torch.parallel import mc_runner
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 TC = dict(reporting.DEFAULT_TAX_CONFIG)
 

@@ -12,6 +12,7 @@ from letf_tpu.ops import pallas_compose, pallas_joint
 from letf_tpu.ops import path_batched as jpb
 from letf_tpu_torch.ops import compose, rng
 from letf_tpu_torch.ops.joint import six_normals
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 SEEDS = (0, 7, 2, 123456789, 2**40 + 5)
 IDS = np.arange(0, 40000, 37)

@@ -18,6 +18,7 @@ import pytest
 import torch
 
 from letf_tpu_torch.ops import rng
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 DT = {"float32": (torch.float32, jnp.float32, np.int32, 2e-6, 2e-7),
       "float64": (torch.float64, jnp.float64, np.int64, 4e-14, 1e-15)}

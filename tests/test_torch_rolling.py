@@ -18,6 +18,7 @@ from letf_tpu.ops import rolling as jrl
 from letf_tpu.strategies import signals as jsig
 from letf_tpu_torch.ops import rolling as rl
 from letf_tpu_torch.strategies import signals as sig
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 B, S = 64, 400
 RTOL, ATOL = 1e-9, 1e-12

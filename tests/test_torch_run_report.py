@@ -48,24 +48,12 @@ from letf_tpu_torch import cli, runner
 from letf_tpu_torch import config as tcfg
 from letf_tpu_torch.data import generate_synthetic_history
 from letf_tpu_torch.parallel import mc_runner
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 N, BUF_YEARS, SEED = 256, 0.5, 3
 CACHES = ("REGIME_MODEL_CACHE", "CORRELATION_CACHE",
           "JOINT_RETURN_MODEL_CACHE", "FUNDING_MODEL_CACHE",
           "TRACKING_RESIDUAL_CACHE", "STRESS_STATE_CACHE")
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    """One torch thread for the module. The fits run thousands of small
-    float64 ops; with torch's default of a thread a core, concurrent test
-    workers oversubscribe the cores and the spinning OpenMP threads slow
-    each fit ~40x (3.2 s alone, over 120 s beside two more such
-    processes on 8 cores; 4.4 s each with one thread)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

@@ -16,6 +16,7 @@ from letf_tpu.models.params import default_sim_model
 from letf_tpu.parallel import mc_runner as jmc
 from letf_tpu_torch import reporting
 from letf_tpu_torch.parallel import mc_runner as tmc
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 N, SEED = 8, 3
 PORT_EXTRAS = {"monte_carlo_report": ("device", "stage_seconds"),

@@ -20,6 +20,7 @@ from letf_tpu.strategies.host import trades_from_emission as jax_trades
 from letf_tpu.tax.device_bridge import yearly_activity_from_emission
 from letf_tpu.tax.vectorized import total_tax_all_trials
 from letf_tpu_torch.parallel import mc_runner
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 N, SEED = 16, 9
 

@@ -26,6 +26,7 @@ from letf_tpu_torch.ops import compose_strategies as k3
 from letf_tpu_torch.ops import rng
 from letf_tpu_torch.ops.slab_chunk import slab_chunk_summaries
 from letf_tpu_torch.parallel import mc_runner
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 B, SIM, BUF, SEED = 1024, 126, 126, 7
 FANS = (10, 50, 90)

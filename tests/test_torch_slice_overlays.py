@@ -19,6 +19,7 @@ from letf_tpu_torch.models.params import from_numpy
 from letf_tpu_torch.ops import compose_strategies as k3
 from letf_tpu_torch.ops import rng
 from letf_tpu_torch.ops.slab_chunk import slab_chunk_summaries
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 def test_slab_chunk_anchor_cashflow_no_buffer(monkeypatch):

@@ -16,6 +16,7 @@ import torch
 
 from letf_tpu.ops.pallas_sort import sort_bridge as jax_sort_bridge
 from letf_tpu_torch.ops.sort_bridge import sort_bridge, sort_bridge_plain
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 def _mk(rng, R, S, kind, n_pay, head_zero=False):
@@ -250,3 +251,29 @@ def test_kernel_model_fifty_years():
     pays = [rng.standard_normal((R, N)).astype(np.float32)
             for _ in range(2)]
     _check_model(key, sec, pays, "merge")
+
+
+@pytest.mark.parametrize("S, has_sec, want", [
+    (7560, True, (181_440, True)),        # 30 y: sec and perm in shared
+    (9685, True, (232_440, False)),       # sec in, perm outside
+    (9686, True, (154_976, True)),        # sec leaves, perm in
+    (12600, True, (201_600, False)),      # 50 y: keys alone
+    (7560, False, (120_960, True)),
+    (11000, False, (176_000, True)),      # 44 y without sec: perm in
+    (12600, False, (201_600, False)),     # 50 y without sec: perm outside
+])
+def test_merge_limit_mirrors_the_kernel(S, has_sec, want):
+    """ops/sort_bridge._merge_limit: the shared bytes and permutation
+    placement of csrc/merge.cu's merge_smem (64-bit keys)."""
+    from letf_tpu_torch.ops.sort_bridge import _merge_limit
+
+    assert _merge_limit(S, has_sec) == want
+
+
+@pytest.mark.parametrize("S, has_sec", [
+    (14529, True), (14529, False), (29057, False)])
+def test_merge_limit_raises_beyond_the_kernel(S, has_sec):
+    from letf_tpu_torch.ops.sort_bridge import _merge_limit
+
+    with pytest.raises(ValueError, match="shared"):
+        _merge_limit(S, has_sec)

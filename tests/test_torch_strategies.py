@@ -26,6 +26,7 @@ from letf_tpu.ops.path_batched import generate_paths_batched
 from letf_tpu.strategies.engine import dca_schedule
 from letf_tpu.strategies.signals import compute_signals
 from letf_tpu_torch.ops import strategies as k4
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 B, S = 1024, 256
 

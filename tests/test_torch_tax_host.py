@@ -41,6 +41,7 @@ from letf_tpu_torch import integration
 from letf_tpu_torch.parallel import mc_runner
 from letf_tpu_torch.tax import engine, lot_selection, marginal, regimes
 from letf_tpu_torch.tax import vectorized, wash_sale
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 HAND_TRADES = [
     # buy 100 @ 50 (day 3), partial sell 40 @ 60 (gain, short term)

@@ -5,16 +5,18 @@ of kernels K3 and K6; the card runs the kernels, chip_smoke.py).
 Both packages must pass with the reference's tolerances (1.5% and 2%
 absolute on the median annual drag); the two estimates come from
 different random streams, so they agree to sampling error: 10,000
-zero-drift paths put the median's standard error near 0.5%; the flat
-decay runs 65,536 K6 paths in the port (~0.2%) and, off the TPU, 5,000
-XLA-twin paths in the JAX package (~0.8%). The bounds are about 3
-standard errors of the difference."""
+zero-drift paths put the median's standard error near 0.5%; off the card
+and the TPU the flat decay runs 5,000 paths on both sides (~0.8% each;
+the port's card route takes 65,536 K6 paths, as the JAX package's kernel
+route does). The bounds are 2-3 standard errors of the difference, on
+fixed seeds."""
 
 import numpy as np
 import pytest
 
 from letf_tpu import validation as jval
 from letf_tpu_torch import validation as tval
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 def test_neutral_model_matches_jax():

@@ -18,6 +18,7 @@ from hypothesis import strategies as hst
 from letf_tpu.ops.pallas_wash import wash_matching_pallas
 from letf_tpu.tax.device_bridge import _wash_matching_scan
 from letf_tpu_torch.ops.wash import wash_matching
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 B, S = 1024, 300
 

@@ -12,6 +12,7 @@ import torch
 from letf_tpu.ops.pallas_window import window_offsets_slab
 from letf_tpu_torch.ops import window
 from letf_tpu_torch.utils.device import slab_to_tb
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 @pytest.mark.parametrize("S", [256, 96])
