@@ -14,12 +14,14 @@ Phases, each raising on failure:
 3. Kernels: each CUDA kernel against its plain PyTorch version on the card,
    on the same inputs, at the main paths' shapes (B=16,384 trials, 30
    years + 5-year buffer; with --quick a 252-day window and a 126-day
-   buffer): K1 (joint) within rtol 1e-4 / VIX atol 1e-3 and bit for bit
-   the first port's one-thread-a-trial kernel (its output digests, stored
+   buffer): K1 (joint) within rtol 1e-4 / VIX atol 1e-3 over the buffer
+   and the first 1,260 days (PLAIN_DAYS) and bit for bit the first port's
+   one-thread-a-trial kernel at the full shape (its output digests, stored
    below), K2 (window) bitwise (independent, antithetic-paired and equal
    offsets, a ragged B of 650, a span past one 32-trial ring), K3
    (compose + strategies) within compose_strategies.check_parity's
-   bounds over the first 2,520 days (PLAIN_DAYS), K5 (compose) within rtol 1e-5 / atol 1e-6 and bit for bit the
+   bounds over the first 1,260 days (PLAIN_DAYS), K5 (compose) within
+   rtol 1e-5 / atol 1e-6 over the first 1,260 days and bit for bit the
    first port's kernel at 16,384 and at the report's 650 trials (its
    output digests, stored below), K7 (bridge merge of float64 keys and
    payloads, merge and valley kinds, [2S, 600] and [2S, 2,048] with 0/2/4
@@ -45,20 +47,18 @@ Phases, each raising on failure:
    reference's, its post-tax tables against the reference's exact-all
    taxes and its sampled estimator's spread (phase_tax_reference); then
    the exact-tax report, monte_carlo_report(default_sim_model(), 30,
-   16,384 trials, seed 2, tax_mode="exact_all"), every trial taxed in
+   8,192 trials, seed 2, tax_mode="exact_all"), every trial taxed in
    float64, held to the reference's exact-all statistics and to the tax
    reference's shared trials, its chunks broken down by stage; after it,
-   counted apart, its first chunk's bridge run again through K7's and
-   K8's plain versions in float64 (bitwise) and in float32, the route
-   before fault 3's repair (the fans' shift in bootstrap SE)
-   (phase_exact_all).
+   counted apart, its first chunk's first bridge fold run again through
+   K7's and K8's plain versions in float64, bitwise (phase_exact_all).
 8. This slice's main path, monte_carlo_report(default_sim_model(), 30,
    16,384 trials, seed 2, engine_mode="parametric") with its default
    sampled taxes, the seconds of each stage of one of its chunks, K4
    (strategies) on that chunk's channels bit for bit the first port's
    kernel (its output digests, stored below) and within check_parity's
    bounds of its plain version (channel mode over 16,384 trials and the
-   first 2,520 of its 7,560 days, fused-signals mode over its first 504),
+   first 1,260 of its 7,560 days, fused-signals mode over its first 504),
    then the parametric report
    through kernels and through plain versions (1,024 x 0.5 year), and the
    first 1,024 trials of the parametric run held to the JAX package's
@@ -69,13 +69,13 @@ Phases, each raising on failure:
    digests and sums (HISTORY_*); (b) calibrate_all on the card against the
    committed fits (the historical regimes exactly, GARCH within 2e-5,
    the rest within rtol 1e-6), its seconds; (c) runner.run_report([10,
-   20, 30], 1,048,576 trials, seed 2) from a cold fit cache, each
+   30], 1,048,576 trials, seed 2) from a cold fit cache, each
    horizon's wall, post-tax seconds and trial-days/s, every fan finite,
    the kernels' launches; (d) the first 1,024 trials x 30 years on the
    committed fits against the JAX package's (JAX_CAL_*); (e) cli --report
    --synthetic-data --sims 16384 --horizons 1 on the warm cache.
 10. The reference's complete analysis (phase_analysis), in a temporary
-   cache of the port's: (1) runner.run(horizons=[10, 20, 30], seed 0,
+   cache of the port's: (1) runner.run(horizons=[10], seed 0,
    force_synthetic=True) at its 200 trials, its timing summary logged and
    its output in build/analysis/analysis_run.txt: every summary number
    finite, the launches of each kernel, the results lists equal to
@@ -93,7 +93,7 @@ Phases, each raising on failure:
    subprocesses.
 11. The reference's other engine modes (phase_engine_modes), in a
    temporary cache of the port's: (1) run_monte_carlo(default_sim_model(),
-   30, 16,384 trials, seed 2, engine_mode="legacy_hybrid",
+   30, 4,096 trials, seed 2, engine_mode="legacy_hybrid",
    bootstrap_pools=the block bootstrap pools of the offline history) (K4
    at its channel shape) and the reference-shaped sampled_post_tax_tables
    on its wealth with the pools (K7, K8); its first 1,024 trials against
@@ -101,7 +101,7 @@ Phases, each raising on failure:
    tools/engine_modes_reference.py): offset and regime-day sums exact,
    S1-S3 medians within ENGINE_P50_RTOL, each day's chosen block row of
    128 trials (float32 near-ties counted); the run's Gumbel draws timed
-   inside it; (2) parallel_monte_carlo_fixed at 200 x 10 y under
+   inside it; (2) parallel_monte_carlo_fixed at 200 x 5 y under
    SIM_ENGINE_MODE="legacy_hybrid"; (3) the reference-shaped per-trial
    institutional call generate_paths_batch(model, key, ids, anti, 7,560)
    at 1,024 trials (its draws and joint day loop timed inside it) and
@@ -114,13 +114,24 @@ Phases, each raising on failure:
    strategy oracle per window, the per-trial engine's first 4 paths of
    (3) against the float64 path oracle on their innovations, the TQQQ
    flow and the income paths on the card.
-12. The buy-and-hold headline: K6 against the port of the XLA twin by
+12. The 50-year envelope (phase_envelope): the TPU record's 50-year
+   chunk through run_monte_carlo (4,096 trials, seed 9) against its 384
+   spells and S2 median and, on its first 128 trials, the JAX package's
+   slab route (ENVELOPE_*, printed by tools/long_horizon_reference.py);
+   the default report at 65,536 x 50 years; exact-all at 1,024 x 50
+   years with its first bridge fold bitwise through the plain K7 and K8.
+13. The runner (phase_runner), on every visible card or two shards of
+   one: mesh runs and reports bitwise one device's, exact-all on the
+   mesh within rtol 1e-9, a run killed after 2 of 4 chunks and resumed
+   bitwise the whole one, the chunk containment's flag, and a
+   device-side assert under it raised (in a subprocess).
+14. The buy-and-hold headline: K6 against the port of the XLA twin by
    bench.py's distribution gate (262,144 x 10 years), then
    gbm_percentile_report(1, 1,048,576, 30) after a seed-0 warm-up, held
    to the first port's K6 (its values, stored below).
-13. The validation invariants: zero-drift drag through K3, flat-market
+15. The validation invariants: zero-drift drag through K3, flat-market
    decay through K6.
-14. A torch.profiler breakdown of one pre-tax chunk; the post-tax part of
+16. A torch.profiler breakdown of one pre-tax chunk; the post-tax part of
    a one-chunk sampled report by stage (host clock, nvidia-smi's busy
    samples).
 Every path runs with the launch counters set to 0 just before it and read
@@ -151,11 +162,12 @@ import torch
 B_CHUNK = 16384
 QUICK = dict(sim=252, buf=126)
 FULL = dict(sim=30 * 252, buf=5 * 252)
-# K3 and K4 against their plain versions over the first 10 years of the
-# 30-year chunk: the plain versions are host-bound day loops (~110 s and
-# ~95 s over all 7,560 days), and the smoke's time goes to the full
-# analysis (phase_analysis); the kernels are timed at the full shape.
-PLAIN_DAYS = 10 * 252
+# K1, K3, K4 and K5 against their plain versions over the first 5 years
+# of the 30-year chunk (K1 with its buffer): the plain versions are
+# host-bound day loops (~30-110 s over all the days), and the smoke must
+# end well inside its limit; the kernels are timed at the full shape, and
+# K1's, K4's and K5's full-shape outputs are held to the first port's.
+PLAIN_DAYS = 5 * 252
 
 # The H100 SXM's published peaks (NVIDIA data sheet): HBM bytes/s and
 # float32 and float64 operations/s outside the tensor cores.
@@ -437,21 +449,28 @@ def phase_kernels(model_t, quick: bool):
     jq = (*ja[:2], regime[:, :q].contiguous(), ids[:q].contiguous(),
           signs[:q].contiguous(), sw)
     k1q_ms, _ = spread(lambda: joint.joint_generate(*jq), 3)
-    plain_ms, xp = timed(lambda: joint.joint_plain(*ja), 1, warm=False)
-    errs = [float((a - b).abs().max()) for a, b in zip(xk, xp)]
+    # The plain version over the buffer and the first PLAIN_DAYS days; the
+    # kernel's full-shape output is held to the first port's digests.
+    plain_T = min(T, buf + PLAIN_DAYS)
+    jp = (*ja[:2], regime[:plain_T].contiguous(), *ja[3:])
+    xs = joint.joint_generate(*jp)
+    plain_ms, xp = timed(lambda: joint.joint_plain(*jp), 1, warm=False)
+    errs = [float((a - b).abs().max()) for a, b in zip(xs, xp)]
     for c in (0, 1, 2, 4):
-        torch.testing.assert_close(xk[c], xp[c], rtol=1e-4, atol=1e-6)
-    torch.testing.assert_close(xk[3], xp[3], rtol=0, atol=1e-3)
-    log(f"K1 joint vs plain at B={B_CHUNK} T={T}: max abs err x0..x2 "
-        f"{max(errs[:3]):.3e}, vix {errs[3]:.3e}, irx {errs[4]:.3e}; output "
-        f"digests equal the first port's; kernel {fmt_spread(k1_ms)} over 5 "
-        f"runs (at B={q}: {fmt_spread(k1q_ms)}), plain {plain_ms:.3f} ms")
+        torch.testing.assert_close(xs[c], xp[c], rtol=1e-4, atol=1e-6)
+    torch.testing.assert_close(xs[3], xp[3], rtol=0, atol=1e-3)
+    log(f"K1 joint vs plain at B={B_CHUNK} over the first {plain_T} days: "
+        f"max abs err x0..x2 {max(errs[:3]):.3e}, vix {errs[3]:.3e}, irx "
+        f"{errs[4]:.3e}; output digests at T={T} equal the first port's; "
+        f"kernel {fmt_spread(k1_ms)} over 5 runs at T={T} (at B={q}: "
+        f"{fmt_spread(k1q_ms)}), plain {plain_ms:.3f} ms at T={plain_T}")
     rec["joint"] = with_bound(
         dict(max_abs_err=max(errs), ms=k1_ms[1], plain_ms=plain_ms,
+             days=T, plain_days=plain_T,
              ms_spread=k1_ms, quarter_ms_spread=k1q_ms, digest_match=True),
         (T + 5 * T) * B_CHUNK * 4 + 8 * B_CHUNK,
         OPS_PER_TRIAL_DAY["joint"] * T * B_CHUNK)
-    del xp
+    del xs, xp, jp
 
     chans = windowed(model_t, list(xk) + [regime], offs, sim)
     del xk
@@ -606,7 +625,13 @@ def phase_k5(ka):
         assert digests == K5_DIGESTS_FIRST_PORT, (
             "K5 is not the first port's kernel bit for bit", digests)
     del got_r
-    plain_ms, ref = timed(lambda: compose.compose_plain(*ka), 1, warm=False)
+    # The plain version over the first PLAIN_DAYS days; the kernel's
+    # full-shape output is held to the first port's digests.
+    plain_days = min(S, PLAIN_DAYS)
+    kp = (*ka[:4], *(c[:plain_days].contiguous() for c in ka[4:]))
+    got = compose.compose_generate(*kp)
+    plain_ms, ref = timed(lambda: compose.compose_plain(*kp), 1, warm=False)
+    del kp
     errs = [float((a - b).abs().max()) for a, b in zip(got[:4], ref[:4])]
     for a, b in zip(got[:4], ref[:4]):
         torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
@@ -617,12 +642,15 @@ def phase_k5(ka):
     bitwise = all(torch.equal(a, b) for a, b in zip(got, ref))
     held = ("output digests equal the first port's" if digests
             else "digests not held at this shape")
-    log(f"K5 compose vs plain at B={B} S={S}: max abs err etf "
-        f"{errs[0]:.3e}, spy/qqq adj {max(errs[1:3]):.3e}, cash "
-        f"{errs[3]:.3e}; jump-count mismatches {jump_mismatch}; bitwise "
-        f"{bitwise}; {held}; kernel {fmt_spread(ms_spread)} over 5 runs (at B={rb}: "
-        f"{fmt_spread(report_ms)}), plain {plain_ms:.3f} ms")
+    log(f"K5 compose vs plain at B={B} over the first {plain_days} days: "
+        f"max abs err etf {errs[0]:.3e}, spy/qqq adj {max(errs[1:3]):.3e}, "
+        f"cash {errs[3]:.3e}; jump-count mismatches {jump_mismatch}; "
+        f"bitwise {bitwise}; {held} at S={S}; kernel "
+        f"{fmt_spread(ms_spread)} over 5 runs at S={S} (at B={rb}: "
+        f"{fmt_spread(report_ms)}), plain {plain_ms:.3f} ms at "
+        f"S={plain_days}")
     return with_bound(dict(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
+                           days=S, plain_days=plain_days,
                            ms_spread=ms_spread, report_ms_spread=report_ms,
                            digest_match=bool(digests) or None),
                       (6 + 9) * S * B * 4 + 4 * B * 4,
@@ -1254,7 +1282,56 @@ def replay_clock(stages):
 EXACT_TAX_REFERENCE = "EXACT_TAX_SCALE_r05.json"
 
 
-def phase_exact_all(model, counters, shared, n=16_384, years=30, seed=0):
+def first_fold_plain(first):
+    """The first bridge fold kept in ``first`` again through K7's and K8's
+    plain versions: (bitwise the kernels' taxes, seconds)."""
+    from letf_tpu_torch import reporting
+    from letf_tpu_torch.ops import sort_bridge, wash
+    from letf_tpu_torch.tax import device_bridge
+
+    saved = (device_bridge.sort_bridge, device_bridge.wash_matching)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    device_bridge.sort_bridge = sort_bridge.sort_bridge_plain
+    device_bridge.wash_matching = wash.wash_plain
+    try:
+        plain = reporting.bridge_activity_tax(first["cols"],
+                                              *first["args"])[0].cpu()
+    finally:
+        device_bridge.sort_bridge, device_bridge.wash_matching = saved
+    torch.cuda.synchronize()
+    return (bool(np.array_equal(plain.numpy(), first["total"])),
+            time.perf_counter() - t0)
+
+
+@contextlib.contextmanager
+def keep_first_fold(first):
+    """Keeps the first bridge fold of the block's reports (its columns,
+    its other arguments and its taxes) in ``first``, and the seconds the
+    keeping took."""
+    from letf_tpu_torch import reporting
+
+    inner = reporting.bridge_activity_tax
+    first["keep_seconds"] = 0.0
+
+    def bridge_activity_tax(stacked, *args, **kw):
+        total, ok = inner(stacked, *args, **kw)
+        if "cols" not in first:
+            t0 = time.perf_counter()
+            first["cols"] = [c.clone() for c in stacked]
+            first["args"] = args[:6]      # no stage seconds
+            first["total"] = total.cpu().numpy()
+            first["keep_seconds"] = time.perf_counter() - t0
+        return total, ok
+
+    reporting.bridge_activity_tax = bridge_activity_tax
+    try:
+        yield
+    finally:
+        reporting.bridge_activity_tax = inner
+
+
+def phase_exact_all(model, counters, shared, n=8_192, years=30, seed=0):
     """This slice's main path: monte_carlo_report(default_sim_model(), 30,
     n trials, seed 2, tax_mode="exact_all"), every trial taxed exactly in
     4,096-trial chunks, the launch counters set to 0 just before and read
@@ -1276,20 +1353,16 @@ def phase_exact_all(model, counters, shared, n=16_384, years=30, seed=0):
     of the restore torch.sort and of K8; the device's busy share as
     nvidia-smi samples it.
 
-    Fault 3's measurement, after the counted run and counted apart: the
-    first chunk's bridge batches (kept in float32 as the emission made
-    them, the keeping's seconds taken off the run's wall) run again in
-    float32, the route before the repair, and the first fold in float64,
-    both through K7's and K8's plain versions. The float64 kernels' taxes
-    must equal the plain versions' bit for bit, and the float32 route's
-    shift of the first chunk's 13 post-tax fans (p10-p90 of the 4,096
-    trials) is logged in units of their bootstrap standard error, with the
-    per-trial tax differences. Returns the launches and the measurement."""
+    After the counted run and counted apart, the first chunk's first
+    bridge fold (kept as the report built it, the keeping's seconds taken
+    off the run's wall) runs again through K7's and K8's plain versions:
+    its float64 taxes must equal the kernels' bit for bit. Returns the
+    launches."""
     from pathlib import Path
 
     from letf_tpu_torch import config as tcfg
     from letf_tpu_torch import reporting
-    from letf_tpu_torch.ops import sort_bridge, wash
+    from letf_tpu_torch.ops import sort_bridge
     from letf_tpu_torch.parallel import mc_runner
     from letf_tpu_torch.tax import device_bridge
 
@@ -1304,28 +1377,11 @@ def phase_exact_all(model, counters, shared, n=16_384, years=30, seed=0):
     def exact_post_tax_all_trials(*args, **kw):
         return inner(*args, trial_values=values, **kw)
 
-    # The first chunk's bridge batches and float64 totals, kept for the
-    # measurement.
-    inner_bat = reporting.bridge_activity_tax
-    n_groups = len(reporting._bridge_groups(tcfg.TAXABLE_IDS, 4096))
-    first = dict(cols=[], args=[], f64=[], f32=[], keep_seconds=0.0)
-
-    def bridge_activity_tax(stacked, *args, **kw):
-        total, ok = inner_bat(stacked, *args, **kw)
-        if len(first["cols"]) < n_groups:
-            t0 = time.perf_counter()
-            first["cols"].append([c.to(torch.float32)
-                                  if c.is_floating_point() else c
-                                  for c in stacked])
-            first["args"].append(args[:6])      # no stage seconds
-            first["f64"].append(total.cpu().numpy())
-            first["keep_seconds"] += time.perf_counter() - t0
-        return total, ok
-
+    first = {}
     reporting.exact_post_tax_all_trials = exact_post_tax_all_trials
-    reporting.bridge_activity_tax = bridge_activity_tax
     try:
         with contextlib.ExitStack() as stack:
+            stack.enter_context(keep_first_fold(first))
             stack.enter_context(replay_clock(stages))
             stack.enter_context(device_clock(
                 dev_ms, "K7", sort_bridge, "_merge_halves"))
@@ -1346,7 +1402,6 @@ def phase_exact_all(model, counters, shared, n=16_384, years=30, seed=0):
             launches = read(counters)
     finally:
         reporting.exact_post_tax_all_trials = inner
-        reporting.bridge_activity_tax = inner_bat
     chunks = -(-n // 4096)
     per_chunk = {k: v / chunks for k, v in dev_ms.items()}
     per_chunk["valley and merge sorts besides K7"] = (
@@ -1366,36 +1421,14 @@ def phase_exact_all(model, counters, shared, n=16_384, years=30, seed=0):
         f"{n * years * 252 / rep['post_tax_seconds']:.6e} taxed "
         f"trial-days/s, launches {launches}")
 
-    # Fault 3's measurement, through the plain versions.
-    saved = (device_bridge.sort_bridge, device_bridge.wash_matching)
     reset(counters)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    device_bridge.sort_bridge = sort_bridge.sort_bridge_plain
-    device_bridge.wash_matching = wash.wash_plain
-    try:
-        for i, (cols, args) in enumerate(zip(first["cols"], first["args"])):
-            first["f32"].append(inner_bat(cols, *args)[0].cpu().numpy())
-            if i == 0:
-                plain = inner_bat(reporting.bridge_columns(cols), *args)[0]
-                first["plain_equal"] = bool(np.array_equal(
-                    plain.cpu().numpy(), first["f64"][0]))
-    finally:
-        device_bridge.sort_bridge, device_bridge.wash_matching = saved
-    torch.cuda.synchronize()
-    m_seconds = time.perf_counter() - t0
+    plain_equal, m_seconds = first_fold_plain(first)
     m_launches = read(counters)
     del first["cols"]
-    shift = bridge_precision_shift(values, first, rng_seed=seed)
-    shift["measurement_seconds"] = m_seconds
-    shift["measurement_launches"] = m_launches
-    log("exact_all bridge precision (fault 3), the first 4,096-trial chunk, "
-        f"measured after the run through K7's and K8's plain versions "
-        f"({m_seconds:.1f} s, launches {m_launches}): the float64 kernels "
-        f"bitwise the float64 plain versions on the first fold: "
-        f"{first['plain_equal']}; the float32 route against the float64 "
-        f"one: {json.dumps(shift)}")
-    assert first["plain_equal"], "K7/K8 differ from their plain versions"
+    log("exact_all: the first chunk's first bridge fold again through K7's "
+        f"and K8's plain versions ({m_seconds:.1f} s, launches "
+        f"{m_launches}): float64 taxes bitwise the kernels': {plain_equal}")
+    assert plain_equal, "K7/K8 differ from their plain versions"
     assert not any(m_launches.values()), m_launches
     rng_np = np.random.default_rng(seed)
     out, failed = {}, []
@@ -1448,46 +1481,7 @@ def phase_exact_all(model, counters, shared, n=16_384, years=30, seed=0):
     assert launches["window_tiles"] == chunks, launches
     assert launches["joint"] == chunks + 1, launches
     assert launches["compose_strategies"] == 1, launches
-    return launches, shift
-
-
-def bridge_precision_shift(values, first, n_boot=200, rng_seed=0):
-    """The float32 bridge's effect on the first chunk's exact-all fans:
-    per strategy, its post-tax p10-p90 from the float32 taxes minus those
-    from the float64 taxes, in units of each percentile's bootstrap
-    standard error (200 resamples of the chunk's trials), and the largest
-    per-trial tax difference (dollars and relative to the float64 tax).
-    ``first``: the float64 and float32 totals of the chunk's bridge
-    batches in reporting._bridge_groups order."""
-    from letf_tpu_torch import config as tcfg
-    from letf_tpu_torch import reporting
-
-    groups = reporting._bridge_groups(tcfg.TAXABLE_IDS, 4096)
-    rng_np = np.random.default_rng(rng_seed)
-    out, worst = {}, 0.0
-    pcts = (10, 25, 50, 75, 90)
-    for (gsids, _), t64, t32 in zip(groups, first["f64"], first["f32"]):
-        t64 = t64.reshape(4096, len(gsids))
-        t32 = t32.reshape(4096, len(gsids))
-        for gi, sid in enumerate(gsids):
-            w = values[sid][0][:4096]
-            p64 = np.maximum(w - t64[:, gi], 0.0)
-            p32 = np.maximum(w - t32[:, gi], 0.0)
-            boot = rng_np.integers(0, 4096, (n_boot, 4096))
-            se = np.percentile(p64[boot], pcts, axis=1).std(axis=1)
-            d = np.percentile(p32, pcts) - np.percentile(p64, pcts)
-            z = np.where(se > 0, d / np.where(se > 0, se, 1.0), 0.0)
-            dt = np.abs(t32[:, gi] - t64[:, gi])
-            out[sid] = dict(
-                fan_shift=[float(x) for x in d],
-                fan_shift_se=[float(x) for x in z],
-                max_tax_diff=float(dt.max()),
-                max_tax_diff_rel=float((dt / np.maximum(np.abs(t64[:, gi]),
-                                                        1.0)).max()),
-                trials_moved=int((dt > 0).sum()))
-            worst = max(worst, float(np.abs(z).max()))
-    out["max_abs_shift_se"] = worst
-    return out
+    return launches
 
 
 @contextlib.contextmanager
@@ -2461,8 +2455,8 @@ def phase_calibration(df, smi):
     return secs
 
 
-def phase_calibrated_report(counters, smi, n=1_048_576, horizons=(10, 20, 30)):
-    """(c) runner.run_report(horizons=[10, 20, 30], 1,048,576 trials, seed
+def phase_calibrated_report(counters, smi, n=1_048_576, horizons=(10, 30)):
+    """(c) runner.run_report(horizons=[10, 30], 1,048,576 trials, seed
     2, force_synthetic=True) from the cached history and a cold fit cache
     (so it calibrates, as a user's first report does), the launch counters
     set to 0 just before and read just after: every fan finite, finite_frac
@@ -2619,7 +2613,7 @@ ANALYSIS_ROLLING_OOS = {'splits_run': 3, 'funding_mae_mean': 5.2727287988647176e
 # ---------------------------------------------------------------------------
 
 ANALYSIS_N = 200                   # cfg.NUM_SIMULATIONS, run's default
-ANALYSIS_HORIZONS = (10, 20, 30)
+ANALYSIS_HORIZONS = (10,)
 # The historical backtest's median window CAGR of each strategy, the port
 # on the card (float32 glue, K4) against the JAX package on the CPU
 # (float32, its XLA scan): the same windows and inputs, the strategies'
@@ -2694,7 +2688,7 @@ def summary_finite(summ) -> int:
 
 
 def analysis_run(counters, smi):
-    """(1) runner.run(horizons=[10, 20, 30], seed=0, force_synthetic=True)
+    """(1) runner.run(horizons=[10], seed=0, force_synthetic=True)
     at 200 trials on the card, the launch counters set to 0 just before
     and read just after; its output goes to build/analysis/analysis_run.txt,
     its timing summary to the log. Returns (launches, the results lists
@@ -3154,7 +3148,7 @@ def analysis_cli(smi):
 
 def phase_analysis(counters, smi):
     """The reference's complete analysis on the card, in a temporary cache
-    of the port's: (1) runner.run at 200 trials x 10/20/30 y and its gates,
+    of the port's: (1) runner.run at 200 trials x 10 y and its gates,
     (2) against the JAX package's numbers (ANALYSIS_*), (3) the
     Trade_Replay route at 4,096 x 30 y, (4) the CLI's default and --quick
     branches. Returns (the run's launches, the replay's launches, the
@@ -3190,7 +3184,7 @@ ENGINE_OFF_LOG_GROWTH = [[0.3227198346943263, 0.2897458773751507, 0.236835648106
 ENGINE_OFF_VIX_SUM = [3501.2681226730347, 4073.7359476089478, 2388.1316480636597, 2441.6101541519165, 2592.093758583069, 2988.8145780563354, 3032.4081830978394, 2989.0889682769775]
 ENGINE_DIAGNOSE = {'pipeline': {'spy_ann_mean': 0.08460447192192078, 'spy_ann_vol': 0.22576346283189114, 'high_vol_frac': 0.21924603174603174, 'vix_mean': 25.101322174072266, 'TQQQ_median_cagr': 0.17903542518615723, 'UPRO_median_cagr': -0.21258914470672607, 'SSO_median_cagr': -0.08043992519378662, 'TMF_median_cagr': -0.13659441471099854, 'SPY_median_cagr': 0.014857649803161621, 'QQQ_median_cagr': 0.18759536743164062, 'valid_frac': 1.0}, 'letf_drag': {'qqq_cagr': 0.1308882236480713, 'perfect_3x_cagr': 0.046331167221069336, 'with_costs_cagr': -0.040912508964538574, 'full_etf_cagr': -0.04269063472747803, 'vol_drag': -0.34633350372314453, 'cost_drag': -0.08724367618560791, 'te_drag': -0.0017781257629394531}, 'tqqq_detailed': {'daily_underlying_bps': 2.3673031330108643, 'daily_leveraged_bps': 7.101909160614014, 'daily_expense_bps': 0.3412698412698413, 'daily_borrow_bps': 3.1358449459075928, 'daily_te_bps': 0.010260564275085926, 'te_std_bps': 3.152386426925659, 'vix_mean': 24.918964385986328, 'annualized_cost_drag': 0.08762329071760178}}
 
-ENGINE_N = 16_384                  # the legacy run: one chunk x 30 y
+ENGINE_N = 4_096                   # the legacy run: one chunk x 30 y
 ENGINE_PLAN_TRIALS = 128           # trial ids whose block rows are checked
 ENGINE_PATH_TRIALS, ENGINE_PATH_DAYS = 8, 150
 ENGINE_OFF_YEARS = 10              # the joint_kernel="off" route's horizon
@@ -3264,7 +3258,7 @@ def engine_plans(model_t, pools, n, sim, buf):
 def phase_engine_modes(counters, smi):
     """The reference's other engine modes on the card, in a temporary
     cache of the port's: (1) run_monte_carlo(default_sim_model(), 30,
-    16,384 trials, seed 2, engine_mode="legacy_hybrid", bootstrap_pools=
+    4,096 trials, seed 2, engine_mode="legacy_hybrid", bootstrap_pools=
     the pools of the port's offline history) (K4 at its channel shape)
     and the reference-shaped sampled_post_tax_tables on its wealth with the
     pools (K7, K8), the counters set to 0 just before and read just after;
@@ -3272,7 +3266,7 @@ def phase_engine_modes(counters, smi):
     package's (offset and regime-day sums exact, S1-S3 medians within
     ENGINE_P50_RTOL), each day's block row of 128 trials (ENGINE_PLAN_*:
     flips counted); the run's Gumbel draws timed inside it (CUDA events);
-    (2) parallel_monte_carlo_fixed at 200 x 10 y under
+    (2) parallel_monte_carlo_fixed at 200 x 5 y under
     SIM_ENGINE_MODE="legacy_hybrid"; (3) the reference-shaped per-trial
     institutional call generate_paths_batch(model, key, ids, anti, 7,560)
     at 1,024 trials (its draws and joint day loop timed inside it) and
@@ -3381,19 +3375,19 @@ def phase_engine_modes(counters, smi):
             t0 = time.perf_counter()
             with contextlib.redirect_stdout(io.StringIO()):
                 res = mc_runner.parallel_monte_carlo_fixed(
-                    list(cfg.STRATEGY_INDEX), 10, model, historical_df=df,
+                    list(cfg.STRATEGY_INDEX), 5, model, historical_df=df,
                     num_simulations=200, seed=0, device="cuda")
             secs = time.perf_counter() - t0
         finally:
             cfg.SIM_ENGINE_MODE = saved
-        fw10 = np.array([[r["Final_Wealth"] for r in res[s]]
+        fw5 = np.array([[r["Final_Wealth"] for r in res[s]]
                          for s in cfg.STRATEGY_INDEX])
-        assert np.isfinite(fw10).all() and fw10.shape == (19, 200)
+        assert np.isfinite(fw5).all() and fw5.shape == (19, 200)
         assert all("Trade_List" in r for r in res["S7"])
         assert res["S1"][0]["Metadata"]["model_version"] == "legacy_hybrid"
-        log(f"engine modes (2): parallel_monte_carlo_fixed 200 x 10y "
+        log(f"engine modes (2): parallel_monte_carlo_fixed 200 x 5y "
             f"(legacy_hybrid, trade lists attached): {secs:.3f} s; S1-S3 "
-            f"medians {np.median(fw10[:3], 1).tolist()}")
+            f"medians {np.median(fw5[:3], 1).tolist()}")
 
     # (3) The per-trial institutional engine and the XLA-only routes.
     rows = torch.arange(1024, device="cuda")
@@ -3741,6 +3735,349 @@ def phase_profile(model):
         f"mean {float(np.mean(samples)) if samples else float('nan'):.1f}%")
 
 
+# The TPU record's 50-year run (bench.py:522-560, BENCH_FULL_r05.json
+# long_horizon_50y): one slab chunk of 4,096 trials x 50 years, key 9, the
+# offset start with a 1,260-day buffer, costs on: 384 spells planned, every
+# wealth finite, S2's median wealth 18,964.7 (a statistic of the JAX
+# package's output on a TPU v5e).
+ENVELOPE_REF_MAX_SPELLS = 384
+ENVELOPE_REF_S2_P50 = 18964.7
+# Printed by `JAX_PLATFORMS=cpu python3 -m tools.long_horizon_reference`:
+# the JAX package's slab route (its Pallas kernels in interpret mode on the
+# CPU, float32) on the record's first 1,024 trials; the sums over the first
+# ENVELOPE_N trials and S1's final wealth on their even rows.
+ENVELOPE_N = 128
+ENVELOPE_INT_SUMS = {'start_offset': 89022, 'regime_high_days': 407524}
+ENVELOPE_S1_WEALTH = (
+    7.76411874616425e-30, 1.7999051009960303e-30, 3.2777157690899136e-31, 1.9223717502293284e-19,
+    0.0, 1.365912410871149e-25, 0.0, 1.0681279194457716e-09,
+    5.158907573979204e-31, 0.0, 6.346331708872761e-23, 1.3158493733996454e-21,
+    2.9667220098258973e-33, 1.0767686239972904e-29, 6.894829217111986e-14, 2.43648683591829e-24,
+    4.93731953099541e-08, 1.6794472916851176e-14, 0.0, 2.89520802654138e-31,
+    3.54472558127072e-28, 0.0, 1.3360955640655743e-26, 3.555397502693876e-16,
+    3.395968679086288e-20, 6.745433563987816e-17, 1.7562824327138446e-22, 1.707264018510189e-26,
+    7.721302073493741e-28, 2.8080409855768794e-18, 1.663325840432987e-22, 0.0,
+    0.0, 1.3063725143103986e-33, 5.408128558362774e-19, 4.1096894042112614e-22,
+    0.0, 3.1856060758034266e-13, 4.5399758101657937e-38, 1.674371076397439e-25,
+    2.6676024844828494e-26, 0.0, 0.0, 1.3805580573108363e-24,
+    1.7281613716000156e-23, 0.0, 0.0, 1.6375382172550272e-21,
+    5.107031519595719e-20, 1.9301161938626046e-28, 0.0, 0.0,
+    2.782116738232159e-26, 2.848082046070095e-20, 0.0, 1.3077317100694532e-29,
+    7.53190731918085e-33, 6.189948470910298e-29, 9.02833000413479e-19, 7.152602322412474e-20,
+    0.0, 2.2347956344097482e-14, 1.7149676860908625e-12, 3.0158720000276696e-33,
+)
+# S1's per-trial relative difference (median, max) from the JAX package's,
+# near the geometric middle between the sound reading (the port on an
+# H100 80GB HBM3 at 700 W: 6.157e-6, 3.271e-4) and the nearest control
+# reading of `tools.long_horizon_reference --controls` (the JAX package
+# on the CPU, float32: without moment matching 0.226, 17.0; without
+# trading costs 0 and 0, since S1 buys and holds).
+ENVELOPE_S1_BOUNDS = (1e-3, 7e-2)
+
+
+def phase_envelope(model, counters):
+    """The 50-year envelope, each part with the launch counters set to 0
+    just before it and read just after:
+
+    (a) the TPU record's configuration through run_monte_carlo (one slab
+    chunk of 4,096 trials x 50 years, seed 9, the offset start, costs on):
+    384 spells planned, every wealth finite, S2's median within 4
+    bootstrap standard errors of the record's 18,964.7 (its relative gap
+    logged), and the first ENVELOPE_N trials against the JAX package's
+    slab route (ENVELOPE_*): the start-offset and regime-day sums exact,
+    S1 per trial within ENVELOPE_S1_BOUNDS;
+    (b) the default report, monte_carlo_report(default_sim_model(), 50,
+    65,536) with its sampled taxes (K1, K2, K3, K2', K5, K7, K8 at 12,600
+    days): every fan and post-tax table finite, no S2 ruin, its stages
+    and launches;
+    (c) exact_post_tax_all_trials at 1,024 trials x 50 years in one chunk,
+    all 13 taxable strategies (K7 with its sec row in device memory): no
+    non-finite trial, the first bridge fold bitwise through K7's and K8's
+    plain versions, the peak device memory.
+    Returns the launches of (b), the 50-year report."""
+    from letf_tpu_torch import config as tcfg
+    from letf_tpu_torch import reporting
+    from letf_tpu_torch.ops import path_batched, sort_bridge, wash
+    from letf_tpu_torch.parallel import mc_runner
+
+    years = 50
+    S = years * 252
+
+    # (a)
+    t_phase = time.perf_counter()
+    spells = path_batched.plan_max_spells(model, S + 1260)
+    reset(counters)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    a = mc_runner.run_monte_carlo(
+        model, years, num_simulations=4096, seed=9, chunk_size=4096,
+        use_antithetic=True, random_start_method="offset", apply_costs=True,
+        progress=False, device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    la = read(counters)
+    fw = a.final_wealth.astype(np.float64)
+    finite = float(np.isfinite(fw).mean())
+    s2 = fw[:, tcfg.STRATEGY_INDEX["S2"]]
+    p50 = float(np.percentile(s2, 50))
+    boot = np.random.default_rng(0).integers(0, len(s2), (200, len(s2)))
+    se = float(np.percentile(s2[boot], 50, axis=1).std())
+    n = ENVELOPE_N
+    ints = {"start_offset": int(a.start_offset[:n].sum()),
+            "regime_high_days": int(a.regime_high_days[:n].sum())}
+    s1 = fw[:n:2, tcfg.STRATEGY_INDEX["S1"]]
+    ref = np.asarray(ENVELOPE_S1_WEALTH, np.float64)
+    rel = np.abs(s1 - ref) / np.maximum(np.abs(ref), 1e-30)
+    log(f"envelope (a): run_monte_carlo 4,096 x {years}y (seed 9, offset "
+        f"start, buffer 1,260): wall {wall:.3f} s, "
+        f"{4096 * S / wall:.6e} trial-days/s, launches {la}; max_spells "
+        f"{spells}; finite fraction {finite}; S2 p50 {p50!r} (record "
+        f"{ENVELOPE_REF_S2_P50}, relative gap "
+        f"{p50 / ENVELOPE_REF_S2_P50 - 1:.3e}, bootstrap SE {se:.3f}, "
+        f"{(p50 - ENVELOPE_REF_S2_P50) / se:.3f} SE); first {n} trials "
+        f"against the JAX package's slab route: integer sums {ints} (JAX "
+        f"{ENVELOPE_INT_SUMS}), S1 per-trial rel err median "
+        f"{np.median(rel):.3e} max {rel.max():.3e}")
+    assert spells == ENVELOPE_REF_MAX_SPELLS, spells
+    assert finite == 1.0, finite
+    assert abs(p50 - ENVELOPE_REF_S2_P50) <= 4 * se, (p50, se)
+    assert ints == ENVELOPE_INT_SUMS, ints
+    assert np.median(rel) < ENVELOPE_S1_BOUNDS[0], rel
+    assert rel.max() < ENVELOPE_S1_BOUNDS[1], rel
+    assert la["joint"] == la["window"] == la["compose_strategies"] == 1, la
+    log(f"envelope (a): {time.perf_counter() - t_phase:.1f} s")
+
+    # (b)
+    t_phase = time.perf_counter()
+    n_b = 65_536
+    stages = {}
+    reset(counters)
+    GENERAL_TRIALS.clear()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    rep = mc_runner.monte_carlo_report(model, years, num_simulations=n_b,
+                                       device="cuda", stage_seconds=stages)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    lb = read(counters)
+    chunks = n_b // tcfg.DEVICE_CHUNK_TRIALS
+    s1r, s2r = rep["strategies"]["S1"], rep["strategies"]["S2"]
+    log(f"envelope (b): monte_carlo_report {n_b} x {years}y (tax_mode "
+        f"{rep['tax_mode']!r}), chunks of {tcfg.DEVICE_CHUNK_TRIALS}: wall "
+        f"{wall:.3f} s, post_tax_seconds {rep['post_tax_seconds']}, pre-tax "
+        f"{wall - rep['post_tax_seconds']:.3f} s, "
+        f"{n_b * S / wall:.6e} trial-days/s, peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, post-tax "
+        f"stages (s) {json.dumps(stages)}, launches {lb}, general path "
+        f"(K5) at {GENERAL_TRIALS} trials; report "
+        + json.dumps({"valid_frac": rep["valid_frac"],
+                      "finite_frac": rep["finite_frac"],
+                      "S1": {"p50": s1r["wealth"]["p50"],
+                             "ruin_frac": s1r["ruin_frac"]},
+                      "S2": {"p50": s2r["wealth"]["p50"],
+                             "ruin_frac": s2r["ruin_frac"]},
+                      "S7": rep["strategies"]["S7"]["post_tax"]["wealth"]}))
+    for sid, st in rep["strategies"].items():
+        assert all(np.isfinite(v) for v in st["wealth"].values()), sid
+        e = st.get("post_tax")
+        if e is not None:
+            assert all(np.isfinite(v) for v in e["wealth"].values()), sid
+            assert np.isfinite(e["median_tax"]) and e["median_tax"] >= 0
+    assert len([s for s in rep["strategies"].values()
+                if "post_tax" in s]) == 13
+    assert rep["finite_frac"] == 1.0, rep["finite_frac"]
+    assert s2r["ruin_frac"] == 0.0, s2r
+    assert lb["joint"] == chunks + 1, lb
+    assert lb["compose_strategies"] == lb["window"] == chunks, lb
+    assert lb["window_tiles"] == lb["compose"] == 1, lb
+    assert lb["sort_bridge"] >= 1 and lb["wash"] >= 1, lb
+    assert lb["strategies"] == 0 and lb["gbm"] == 0, lb
+    assert GENERAL_TRIALS and all(b > 0 for b in GENERAL_TRIALS)
+    log(f"envelope (b): {time.perf_counter() - t_phase:.1f} s")
+
+    # (c)
+    t_phase = time.perf_counter()
+    first, stages_c, values = {}, {}, {}
+    reset(counters)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with keep_first_fold(first):
+        ex = reporting.exact_post_tax_all_trials(
+            model, years, 1024, chunk_size=1024, device="cuda",
+            stage_seconds=stages_c, trial_values=values)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    lc = read(counters)
+    equal, p_seconds = first_fold_plain(first)
+    fold_shape = tuple(first["cols"][0].shape)
+    del first["cols"]
+    log(f"envelope (c): exact_post_tax_all_trials 1,024 x {years}y, one "
+        f"chunk, 13 strategies: wall {wall:.3f} s, stages (s) "
+        f"{json.dumps(stages_c)}, peak device memory {peak:.2f} GiB, "
+        f"launches {lc}; K7's shared bytes and permutation in shared "
+        f"memory at S={S} with a sec row: {sort_bridge._merge_limit(S, True)}, "
+        f"K8's {wash.match_smem(S)}; the first fold {fold_shape} again "
+        f"through the plain versions ({p_seconds:.1f} s): bitwise {equal}; "
+        "S7 " + json.dumps({k: ex["S7"][k] for k in
+                            ("median_tax", "pre_tax_p50", "post_tax_p50")}))
+    assert len(ex) == 13
+    for sid, e in ex.items():
+        assert e["n_trials"] == 1024 and e["nonfinite_trials"] == 0, sid
+        w, pw = values[sid]
+        assert np.isfinite(w).all() and np.isfinite(pw).all(), sid
+    assert fold_shape[0] == S, fold_shape
+    assert equal, "K7/K8 differ from their plain versions at 50 years"
+    assert lc["sort_bridge"] > 0 and lc["wash"] > 0, lc
+    log(f"envelope (c): {time.perf_counter() - t_phase:.1f} s")
+    return lb
+
+
+# A chunk that stops on a device-side assert (an out-of-range index) under
+# fault_tolerant: the containment must raise, not flag the chunk.
+STICKY_CHILD = r"""
+import torch
+from letf_tpu_torch.models.params import default_sim_model
+from letf_tpu_torch.parallel import mc_runner
+real = mc_runner._Run.chunk
+def chunk(self, ids, anti):
+    out = real(self, ids, anti)
+    if int(ids[0]) == 512:
+        x = torch.zeros(4, device=self.device)
+        x[torch.tensor([1 << 20], device=self.device)] = 1.0
+    return out
+mc_runner._Run.chunk = chunk
+mc_runner.run_monte_carlo(default_sim_model(), 1, num_simulations=2048,
+                          seed=1, chunk_size=1024, fault_tolerant=True,
+                          device="cuda")
+print("containment did not raise")
+"""
+
+
+def phase_runner(model, counters):
+    """Multi-device runs, checkpoint/resume and the chunk containment, on
+    every visible card when there are several, else on two shards of
+    cuda:0 (parallel/mesh.py), each run with the launch counters set to 0
+    just before it and read just after: run_monte_carlo and
+    monte_carlo_report (its sampled taxes) at 32,768 x 10 y in chunks of
+    16,384 on the mesh, bit for bit their single-device runs;
+    exact_post_tax_all_trials at 2,048 x 10 y in chunks of 1,024 on the
+    mesh, within rtol 1e-9 of one device; 4 chunks of 16,384 x 10 y killed
+    after 2 (max_chunks) and resumed from their checkpoint, bit for bit the
+    uninterrupted run; fault_tolerant with a Python exception in the
+    second chunk: that chunk alone flagged and NaN, the others bit for bit
+    the clean run; and, in a subprocess, a device-side assert in a chunk
+    under fault_tolerant, which must be raised, not flagged."""
+    from letf_tpu_torch import reporting
+    from letf_tpu_torch.parallel import mc_runner
+    from letf_tpu_torch.parallel.mesh import trial_mesh
+
+    mesh = (trial_mesh() if torch.cuda.device_count() > 1
+            else trial_mesh(["cuda:0", "cuda:0"]))
+    years, n, cs, seed = 10, 32_768, 16_384, 4
+    kw = dict(num_simulations=n, seed=seed, chunk_size=cs, device="cuda")
+    times, launches = {}, {}
+
+    def timed_run(name, fn, *args, **kwargs):
+        reset(counters)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        torch.cuda.synchronize()
+        times[name] = round(time.perf_counter() - t0, 3)
+        launches[name] = read(counters)
+        return out
+
+    single = timed_run("run single", mc_runner.run_monte_carlo, model, years,
+                       progress=False, **kw)
+    multi = timed_run("run mesh", mc_runner.run_monte_carlo, model, years,
+                      mesh=mesh, progress=False, **kw)
+    run_equal = {k: bool(np.array_equal(np.asarray(v),
+                                        np.asarray(vars(multi)[k])))
+                 for k, v in vars(single).items()}
+    rep_single = timed_run("report single", mc_runner.monte_carlo_report,
+                           model, years, **kw)
+    rep_multi = timed_run("report mesh", mc_runner.monte_carlo_report,
+                          model, years, mesh=mesh, **kw)
+    for r in (rep_single, rep_multi):
+        r.pop("post_tax_seconds")
+    ex_kw = dict(chunk_size=1024, seed=seed, device="cuda")
+    ex_single = timed_run("exact_all single",
+                          reporting.exact_post_tax_all_trials, model, years,
+                          2048, **ex_kw)
+    ex_multi = timed_run("exact_all mesh",
+                         reporting.exact_post_tax_all_trials, model, years,
+                         2048, mesh=mesh, **ex_kw)
+    ex_rel = max(abs(ex_multi[sid][k] - v) / max(abs(v), 1e-9)
+                 for sid, e in ex_single.items() for k, v in e.items()
+                 if isinstance(v, float))
+
+    rkw = dict(num_simulations=4 * cs, seed=seed, chunk_size=cs,
+               progress=False, device="cuda")
+    clean = timed_run("run 4 chunks", mc_runner.run_monte_carlo, model,
+                      years, **rkw)
+    with tempfile.TemporaryDirectory(dir=REPO / "build") as d:
+        partial = timed_run("run killed after 2", mc_runner.run_monte_carlo,
+                            model, years, checkpoint_dir=d, max_chunks=2,
+                            **rkw)
+        files = sorted(p.name for p in Path(d).iterdir())
+        resumed = timed_run("run resumed", mc_runner.run_monte_carlo, model,
+                            years, checkpoint_dir=d, resume=True, **rkw)
+    resume_equal = all(np.array_equal(np.asarray(v),
+                                      np.asarray(vars(resumed)[k]))
+                       for k, v in vars(clean).items())
+
+    real = mc_runner._Run.chunk
+
+    def chunk(self, ids, anti):
+        if int(ids[0]) == cs // 2:          # the second chunk's first id
+            raise RuntimeError("injected chunk failure")
+        return real(self, ids, anti)
+
+    mc_runner._Run.chunk = chunk
+    try:
+        guarded = timed_run("run fault_tolerant", mc_runner.run_monte_carlo,
+                            model, years, fault_tolerant=True,
+                            chunk_retries=1, **rkw)
+    finally:
+        mc_runner._Run.chunk = real
+    bad = np.zeros(4 * cs, bool)
+    bad[cs:2 * cs] = True
+    keep_equal = all(np.array_equal(getattr(guarded, k)[~bad],
+                                    getattr(clean, k)[~bad])
+                     for k in ("final_wealth", "num_trades", "max_dd",
+                               "start_offset", "regime_high_days"))
+    t0 = time.perf_counter()
+    child = subprocess.run([sys.executable, "-c", STICKY_CHILD], cwd=REPO,
+                           capture_output=True, text=True, timeout=300)
+    times["sticky subprocess"] = round(time.perf_counter() - t0, 3)
+    sticky_tail = child.stderr.strip().splitlines()[-1:] or [""]
+    log(f"runner: mesh {mesh} (shards {mesh.size}); seconds {times}; "
+        f"launches {json.dumps(launches)}; run mesh vs single bitwise "
+        f"{run_equal}; report mesh == single {rep_multi == rep_single}; "
+        f"exact_all mesh vs single max rel diff {ex_rel:.3e}; checkpoint "
+        f"files after the kill {files}, partial {partial.final_wealth.shape}"
+        f", resumed bitwise {resume_equal}; fault_tolerant: flagged "
+        f"{int(guarded.chunk_failed.sum())} trials, the rest bitwise "
+        f"{keep_equal}; device-side assert under fault_tolerant: exit "
+        f"{child.returncode}, {sticky_tail[0][:200]!r}")
+    assert all(run_equal.values()), run_equal
+    assert rep_multi == rep_single
+    assert ex_rel <= 1e-9, ex_rel
+    assert len(files) == 3 and partial.final_wealth.shape[0] == 2 * cs
+    assert resume_equal
+    np.testing.assert_array_equal(guarded.chunk_failed, bad)
+    assert np.isnan(guarded.final_wealth[bad]).all() and keep_equal
+    assert child.returncode != 0, child.stdout
+    assert "device-side assert" in child.stderr, child.stderr[-2000:]
+    assert "flagged" not in child.stdout, child.stdout
+    lm = launches["run mesh"]
+    assert lm["joint"] == lm["compose_strategies"] == 2 * mesh.size, lm
+
+
 KERNELS = {   # name -> (source, the TPU kernel it replaces, its path)
     "joint": ("letf_tpu_torch/csrc/joint.cu",
               "letf_tpu/ops/pallas_joint.py:104", "default_report"),
@@ -3823,8 +4160,8 @@ def main():
     shared = run_phase("tax_reference", phase_tax_reference, model, rep)
     del rep
     torch.cuda.empty_cache()
-    launches["exact_all"], rec["exact_all_precision"] = run_phase(
-        "exact_all", phase_exact_all, model, ctrs, shared)
+    launches["exact_all"] = run_phase("exact_all", phase_exact_all, model,
+                                      ctrs, shared)
     torch.cuda.empty_cache()
     launches["parametric_report"], rec["strategies"] = run_phase(
         "parametric", phase_parametric, model, model_t, ctrs)
@@ -3842,6 +4179,11 @@ def main():
     launches["engine_modes"] = phase_engine_modes(ctrs, smi)
     torch.cuda.empty_cache()
     run_phase("oracles", phase_oracles, model, model_t, ctrs, smi)
+    torch.cuda.empty_cache()
+    launches["envelope_report"] = run_phase("envelope", phase_envelope, model,
+                                            ctrs)
+    torch.cuda.empty_cache()
+    run_phase("runner", phase_runner, model, ctrs)
     torch.cuda.empty_cache()
     launches["headline"] = run_phase("headline", phase_headline, ctrs)
     run_phase("validation", phase_validation, ctrs)

@@ -216,13 +216,18 @@ int merge_smem(int S, int has_sec, int* sec_in_smem, int* perm_in_smem) {
   return (int)(*perm_in_smem ? with_perm : rows);
 }
 
+// The attribute belongs to the current device: set once on each.
 cudaError_t allow_merge_smem() {
-  static bool attr_set = false;
-  if (attr_set) return cudaSuccess;
-  const cudaError_t err = cudaFuncSetAttribute(
+  constexpr int kMaxDevices = 64;
+  static bool attr_set[kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < kMaxDevices && attr_set[dev]) return cudaSuccess;
+  err = cudaFuncSetAttribute(
       merge_trial, cudaFuncAttributeMaxDynamicSharedMemorySize,
       kMaxSmem);
-  if (err == cudaSuccess) attr_set = true;
+  if (err == cudaSuccess && dev < kMaxDevices) attr_set[dev] = true;
   return err;
 }
 

@@ -1,31 +1,43 @@
-"""Data layer: the historical market history, offline.
+"""Data layer: the historical market history.
 
-The port's copy of the offline route of ``letf_tpu/data.py``
-(``fetch_historical_data``, :300-385): the deterministic synthetic history
-(``generate_synthetic_history``, :130), the backfill branches, the
-synthetic pre-inception LETF reconstruction (``reconstruct_letf_columns``,
-:237), the indicators (SMA200, EWMA and 20-day vol), the trim to the
-analysis range and the cache. Host numpy/scipy with the reference's own
-``default_rng`` seeds and draw order, on ``utils/frame.Frame`` in place of
-a pandas DataFrame: the columns the generator writes are the reference's
-bits, and the rolling and EWM columns follow pandas' own algorithms.
+The port's copy of ``letf_tpu/data.py``: the network loaders
+(``fetch_fama_french_data``, :52; ``fetch_market_data``, :79), the splice
+(``combine_data_sources``, :220), the deterministic synthetic history
+(``generate_synthetic_history``, :130), the backfill branches (the
+dynamic-factor ones through ``utils/finance.py``), the synthetic
+pre-inception LETF reconstruction (``reconstruct_letf_columns``, :237),
+the indicators (SMA200, EWMA and 20-day vol), the trim to the analysis
+range and the cache (``fetch_historical_data``, :300). Host numpy/scipy
+with the reference's own ``default_rng`` seeds and draw order, on
+``utils/frame.Frame`` in place of a pandas DataFrame: the columns are the
+reference's bits, and the rolling and EWM columns follow pandas' own
+algorithms.
 
-The network loaders keep the reference's gate: ``None`` where
-``pandas_datareader`` / ``yfinance`` cannot be imported. Where they can,
-they raise: the network route (the loaders, ``combine_data_sources`` and
-the dynamic-factor backfill) is ROADMAP item 14.
+Each loader is a download and a function that makes its frame. The
+download imports its package (``pandas_datareader``, ``yfinance``) only
+when it is called, and gives ``None`` where the package cannot be
+imported, as the reference does; a download that fails prints the
+reference's ``[WARN]`` and gives ``None``, which sends
+``fetch_historical_data`` to the synthetic history as in the reference. The frame functions (``fama_french_frame``,
+``market_frame``) read the downloaded table by duck typing (``.index``,
+``[column]``, ``.to_numpy()``), so the port never imports pandas.
 """
 
 from __future__ import annotations
 
+import importlib
 import importlib.util
+import sys
 from typing import Optional
 
 import numpy as np
 
 from letf_tpu_torch import config as cfg
 from letf_tpu_torch.utils.cache import load_cache, save_cache
-from letf_tpu_torch.utils.finance import get_borrow_cost_series
+from letf_tpu_torch.utils.finance import (
+    fill_missing_with_dynamic_factor,
+    get_borrow_cost_series,
+)
 from letf_tpu_torch.utils.frame import (
     Frame,
     bdate_range,
@@ -34,33 +46,125 @@ from letf_tpu_torch.utils.frame import (
     fillna,
     ffill,
     interpolate_both,
+    pct_change,
     rolling_mean,
     rolling_std,
 )
-
-_NETWORK_ROUTE = ("the network data route (Fama-French / yfinance loaders, "
-                  "combine_data_sources, the dynamic-factor backfill) is "
-                  "not ported yet: ROADMAP item 14")
+from letf_tpu_torch.utils.guard import guarded
 
 
-def _importable(name: str) -> bool:
-    return importlib.util.find_spec(name) is not None
+# ---------------------------------------------------------------------------
+# Network loaders: download, then build the frame
+# ---------------------------------------------------------------------------
+
+def _network_module(name: str):
+    """The module ``name`` of a network loader, imported now, or None
+    where its package cannot be imported."""
+    top = name.split(".")[0]
+    if top not in sys.modules and importlib.util.find_spec(top) is None:
+        return None
+    return importlib.import_module(name)
+
+
+def _dates(table) -> np.ndarray:
+    return np.asarray(table.index.to_numpy()).astype("datetime64[D]")
+
+
+def _column(table, name) -> np.ndarray:
+    return np.asarray(table[name].to_numpy(), np.float64)
 
 
 def fetch_fama_french_data(start_date: str, end_date: str) -> Optional[Frame]:
-    """The reference's Fama-French loader: ``None`` without
-    ``pandas_datareader``, as there."""
-    if not _importable("pandas_datareader"):
+    """Daily market returns from the Fama-French library (1926+), through
+    ``pandas_datareader``; None without it or when the download fails."""
+    web = _network_module("pandas_datareader.data")
+    if web is None:
         return None
-    raise NotImplementedError(_NETWORK_ROUTE)
+    ff, err = guarded(lambda: web.DataReader(
+        "F-F_Research_Data_Factors_daily", "famafrench", start=start_date,
+        end=end_date)[0])
+    if err is not None:
+        print(f"  [WARN] Fama-French fetch failed: {err}")
+        return None
+    return fama_french_frame(ff)
+
+
+def fama_french_frame(ff) -> Frame:
+    """The reference's frame of the Fama-French daily factors table
+    (columns "Mkt-RF" and "RF", in percent): market return = Mkt-RF + RF;
+    IRX proxied from annualized RF; synthetic VIX from 20-day rolling vol;
+    NASDAQ ~ 1.25x SPY; TLT ~ -0.25x SPY + carry."""
+    mkt, rf = _column(ff, "Mkt-RF"), _column(ff, "RF")
+    out = Frame(index=_dates(ff))
+    out["SPY_Ret"] = (mkt + rf) / 100.0
+    out["RF"] = rf / 100.0
+    out["IRX"] = rf * 252.0
+    out["SPY_Price"] = cumprod(1 + out["SPY_Ret"]) * 100
+    out["NASDAQ_Ret"] = out["SPY_Ret"] * 1.25
+    out["QQQ_Ret"] = out["NASDAQ_Ret"]
+    rolling_vol = rolling_std(out["SPY_Ret"], 20) * np.sqrt(252) * 100
+    out["VIX"] = fillna(rolling_vol, 20.0)
+    out["TLT_Ret"] = out["SPY_Ret"] * -0.25 + out["RF"]
+    out["Data_Source"] = "Fama-French"
+    return out
+
+
+MARKET_TICKERS = ["^GSPC", "^IXIC", "^VIX", "^IRX", "^TNX", "TLT", "QQQ",
+                  "TQQQ", "UPRO", "SSO"]
 
 
 def fetch_market_data(start_date: str, end_date: str) -> Optional[Frame]:
-    """The reference's yfinance loader: ``None`` without ``yfinance``, as
-    there."""
-    if not _importable("yfinance"):
+    """1950+ market data through ``yfinance``: indices, VIX, rates, TLT,
+    QQQ and real LETF prices (TQQQ/UPRO/SSO); None without it or when the
+    download fails."""
+    yf = _network_module("yfinance")
+    if yf is None:
         return None
-    raise NotImplementedError(_NETWORK_ROUTE)
+    data, err = guarded(lambda: yf.download(
+        MARKET_TICKERS, start=start_date, end=end_date, progress=False,
+        auto_adjust=True))
+    if err is not None:
+        print(f"  [WARN] market data fetch failed: {err}")
+        return None
+    return market_frame(data)
+
+
+def market_frame(data) -> Frame:
+    """The reference's frame of a ``yf.download`` table (its "Close"
+    prices by ticker)."""
+    close = data["Close"]
+    df = Frame(index=_dates(close))
+    n = len(df)
+    if "^GSPC" in close:
+        df["SPY_Price"] = _column(close, "^GSPC")
+        df["SPY_Ret"] = pct_change(df["SPY_Price"])
+    if "^IXIC" in close:
+        df["NASDAQ_Price"] = _column(close, "^IXIC")
+        df["NASDAQ_Ret"] = pct_change(df["NASDAQ_Price"])
+    if "QQQ" in close:
+        df["QQQ_Price"] = _column(close, "QQQ")
+        df["QQQ_Ret"] = pct_change(df["QQQ_Price"])
+    for etf in ("TQQQ", "UPRO", "SSO"):
+        if etf in close:
+            df[f"{etf}_Real_Price"] = _column(close, etf)
+            df[f"{etf}_Real_Ret"] = pct_change(df[f"{etf}_Real_Price"])
+    if "^VIX" in close:
+        df["VIX"] = _column(close, "^VIX")
+    if "SPY_Ret" in df:
+        vol = rolling_std(df["SPY_Ret"], 20) * np.sqrt(252) * 100
+        df["VIX"] = fillna(fillna(df.get("VIX", np.full(n, np.nan)), vol),
+                           20.0)
+    if "^IRX" in close:
+        df["IRX"] = _column(close, "^IRX")
+    df["IRX"] = fillna(df.get("IRX", np.full(n, 4.5)), 4.5)
+    if "^TNX" in close:
+        df["TNX"] = _column(close, "^TNX")
+    df["Cash_Ret"] = df["IRX"] / 100 / 252
+    if "TLT" in close:
+        df["TLT_Price"] = _column(close, "TLT")
+        df["TLT_Ret"] = pct_change(df["TLT_Price"])
+    df["Data_Source"] = "yfinance"
+    return df
 
 
 # ---------------------------------------------------------------------------
@@ -151,8 +255,40 @@ def generate_synthetic_history(start_date: str = cfg.DATA_START_DATE,
 
 
 # ---------------------------------------------------------------------------
-# Reconstruction
+# Splice + reconstruction
 # ---------------------------------------------------------------------------
+
+def combine_data_sources(ff_data: Frame, market_data: Frame,
+                         cutoff_date: str = cfg.YFINANCE_START_DATE) -> Frame:
+    """Fama-French before the cutoff, market data from it on; a column of
+    one source only is NaN in the other's rows; the rows sorted by date,
+    and a continuous SPY price. A date that repeats (only possible inside
+    one source) keeps its last row in that source's order: the sort is
+    stable. (The reference's ``sort_index`` is not stable, so which row
+    of a repeated date it keeps is left to numpy's quicksort.)"""
+    cutoff = np.datetime64(cutoff_date, "D")
+    before = ff_data.take(ff_data.index < cutoff)
+    after = market_data.take(market_data.index >= cutoff)
+    for col in after.columns:
+        if col not in before:
+            before[col] = np.full(len(before), np.nan)
+    cols = before.columns + [c for c in after.columns if c not in before]
+    index = np.concatenate([before.index, after.index])
+    order = np.argsort(index, kind="stable")
+    dates = index[order]
+    last = np.ones(len(order), bool)
+    last[:-1] = dates[1:] != dates[:-1]
+    rows = order[last]
+    combined = Frame(index=index[rows])
+    for c in cols:
+        a = before[c]
+        b = after[c] if c in after else np.full(len(after), np.nan)
+        combined[c] = np.concatenate([a, b])[rows]
+    if "SPY_Ret" in combined:
+        combined["SPY_Price"] = cumprod(1 + fillna(combined["SPY_Ret"],
+                                                   0)) * 100
+    return combined
+
 
 def reconstruct_letf_columns(df: Frame) -> Frame:
     """Synthetic LETF series for every asset with correct vol-drag
@@ -228,8 +364,9 @@ def _has_gaps(df: Frame, col: str) -> bool:
 
 
 def fetch_historical_data(force_synthetic: bool = False) -> Frame:
-    """Full data pipeline with caching: fetch (or synthesize) -> backfill
-    -> reconstruct LETFs -> indicators -> trim to analysis range."""
+    """Full data pipeline with caching: fetch (or synthesize) -> splice ->
+    backfill -> reconstruct LETFs -> indicators -> trim to analysis
+    range."""
     cached = load_cache(cfg.DATA_CACHE)
     if cached is not None:
         print("[OK] Using cached historical data")
@@ -239,19 +376,29 @@ def fetch_historical_data(force_synthetic: bool = False) -> Frame:
     print("FETCHING HISTORICAL DATA")
     print(f"{'=' * 80}")
 
+    df = None
     if not force_synthetic:
-        ff = fetch_fama_french_data(cfg.DATA_START_DATE, cfg.FAMA_FRENCH_END_DATE)
+        ff = fetch_fama_french_data(cfg.DATA_START_DATE,
+                                    cfg.FAMA_FRENCH_END_DATE)
         mkt = fetch_market_data(cfg.YFINANCE_START_DATE, cfg.DATA_END_DATE)
-        if ff is not None or mkt is not None:
-            raise NotImplementedError(_NETWORK_ROUTE)
-    print("  [INFO] Network data unavailable - generating deterministic "
-          "SYNTHETIC market history (offline mode)")
-    df = generate_synthetic_history()
+        if ff is not None and mkt is not None and len(mkt) > 0:
+            df = combine_data_sources(ff, mkt)
+        elif mkt is not None and len(mkt) > 0:
+            df = mkt
+        elif ff is not None:
+            df = ff
+    if df is None or "SPY_Ret" not in df or np.isnan(df["SPY_Ret"]).all():
+        print("  [INFO] Network data unavailable - generating deterministic "
+              "SYNTHETIC market history (offline mode)")
+        df = generate_synthetic_history()
 
-    # Backfills (the dynamic-factor ones serve only network data).
-    for col in ("NASDAQ_Ret", "QQQ_Ret"):
-        if _has_gaps(df, col):
-            raise NotImplementedError(_NETWORK_ROUTE)
+    # Backfills (dynamic factor models; reference data.py:360-414).
+    if _has_gaps(df, "NASDAQ_Ret"):
+        df["NASDAQ_Ret"] = fill_missing_with_dynamic_factor(
+            df, "NASDAQ_Ret", "SPY_Ret", default_beta=1.25, seed=1101)
+    if _has_gaps(df, "QQQ_Ret"):
+        df["QQQ_Ret"] = fill_missing_with_dynamic_factor(
+            df, "QQQ_Ret", "NASDAQ_Ret", default_beta=1.0, seed=1102)
     if _has_gaps(df, "VIX"):
         vol = rolling_std(df["SPY_Ret"], 20) * np.sqrt(252) * 100
         df["VIX"] = fillna(fillna(df["VIX"], vol), 20.0)
@@ -264,7 +411,9 @@ def fetch_historical_data(force_synthetic: bool = False) -> Frame:
     if "Cash_Ret" not in df:
         df["Cash_Ret"] = df["IRX"] / 100 / 252
     if _has_gaps(df, "TLT_Ret"):
-        raise NotImplementedError(_NETWORK_ROUTE)
+        filled = fill_missing_with_dynamic_factor(
+            df, "TLT_Ret", "SPY_Ret", default_beta=-0.20, seed=1103)
+        df["TLT_Ret"] = fillna(filled, df["IRX"] / 100 / 252)
 
     df = reconstruct_letf_columns(df)
 

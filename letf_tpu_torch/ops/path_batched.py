@@ -224,6 +224,22 @@ def window_series(chans, start_offset, sim_days: int, biases=()):
                           sim_days, biases=biases)
 
 
+def day_mean(x):
+    """The mean over days (dim 0) of ``x`` [T, B], summed pairwise in an
+    order that depends on T alone: halving steps of elementwise adds (an
+    odd row carried to the next step). torch's own reductions pick their
+    order by the whole shape, so a trial's mean would depend on how many
+    trials share its batch; this one is the same bits in any chunk or
+    shard, on the CPU and on the card."""
+    s = x
+    n = x.shape[0]
+    while s.shape[0] > 1:
+        m = s.shape[0]
+        h = s[0:m - 1:2] + s[1:m:2]
+        s = torch.cat([h, s[m - 1:]]) if m % 2 else h
+    return s[0] / n
+
+
 def windowed_chain(model, run_key, trial_ids, antithetic, sim_days: int,
                    buffer_days: int = 0, random_start_method: str = "offset",
                    anchors=None, moment_matching: bool = True,
@@ -251,7 +267,7 @@ def windowed_chain(model, run_key, trial_ids, antithetic, sim_days: int,
     biases = []
     if moment_matching:
         theo = model.joint.theo_mean.to(torch.float32)
-        biases = [(theo[c] - xc.mean(dim=0)) * 0.1
+        biases = [(theo[c] - day_mean(xc)) * 0.1
                   for c, xc in enumerate((x0, x1, x2))]
     chans = window_series([x0, x1, x2, vix_full, irx_full, regime],
                           sc.start_offset, sim_days, biases)

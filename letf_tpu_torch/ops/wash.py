@@ -60,6 +60,27 @@ def wash_plain(loss, sell_sh, buy_q):
     return dis, rep_off, has
 
 
+MAX_SMEM = 227 * 1024     # dynamic shared bytes a block can take
+
+
+def match_smem(S: int) -> int:
+    """Dynamic shared bytes of the loss-day walk at S days, as
+    csrc/wash.cu's match_smem(ceil(S / 32)): the loss and eligible-buy
+    words of a warp's 32 trials, one extra word each."""
+    return (2 * -(-S // 32) + 2) * 32 * 4
+
+
+def check_smem(S: int) -> int:
+    """``match_smem(S)``, or a ValueError where the card cannot give it
+    (past about 29,000 days)."""
+    smem = match_smem(S)
+    if smem > MAX_SMEM:
+        raise ValueError(f"wash_matching: {S} days need {smem} bytes of "
+                         f"shared memory; the kernel takes at most "
+                         f"{MAX_SMEM}")
+    return smem
+
+
 def wash_matching(loss, sell_sh, buy_q):
     """K8 on the device of the inputs: the CUDA kernel for float64 CUDA
     tensors, ``wash_plain`` for CPU tensors."""
@@ -69,6 +90,7 @@ def wash_matching(loss, sell_sh, buy_q):
     S, B = loss.shape
     if sell_sh.shape != (S, B) or buy_q.shape != (S, B):
         raise ValueError("wash_matching: loss, sell_sh, buy_q must be [S, B]")
+    check_smem(S)
     dev = loss.device
     _build.check_cuda("wash_matching", dev, loss=(loss, torch.float64),
                       sell_sh=(sell_sh, torch.float64),

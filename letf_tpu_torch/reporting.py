@@ -424,6 +424,47 @@ def _bridge_groups(strategy_ids, n_here: int):
     return groups
 
 
+def _taxed_chunk(run, ids, anti, strategy_ids, groups, lot_method: str,
+                 n_years: int, income, tax_kw: Dict,
+                 stage_seconds: Optional[Dict]):
+    """One exact-all chunk on ``run``'s device: the general path with
+    journal emission, then each bridge batch of ``groups`` through the
+    device bridge and the vectorized tax. Returns (final wealth [n, 19],
+    per group its total tax [n, G] and its ok flags [n, G]) as device
+    tensors."""
+    from letf_tpu_torch.parallel.mc_runner import general_chunk
+
+    dev = run.device
+    dt = glue_dtype(dev)
+    n_here = len(ids)
+    t0 = time.perf_counter()
+    summ, emission = general_chunk(run, ids, anti, apply_costs=True)
+    emission = [e if e.dtype == torch.int8 else e.to(dt) for e in emission]
+    fw = summ["final_wealth"]
+    del summ
+    _mark(stage_seconds, "emission", t0, dev)
+    lot_cap = None
+    if lot_method != "FIFO":
+        worst = max(max_buy_events(*bridge_columns(
+            e[:, :, cfg.TAXABLE_IDS.index(sid)] for e in emission))
+            for sid in strategy_ids)
+        lot_cap = max(256, -(-worst // 256) * 256)
+    totals, oks = [], []
+    for gsids, assets in groups:
+        cols = torch.as_tensor([cfg.TAXABLE_IDS.index(s) for s in gsids],
+                               device=dev)
+        G = len(gsids)
+        stacked = bridge_columns(
+            e[:, :, cols].reshape(e.shape[0], n_here * G) for e in emission)
+        total, ok = bridge_activity_tax(
+            stacked, assets, n_years, income, tax_kw, lot_method, lot_cap,
+            stage_seconds)
+        del stacked
+        totals.append(total.reshape(n_here, G))
+        oks.append(ok.reshape(n_here, G))
+    return fw, totals, oks
+
+
 def exact_post_tax_all_trials(model, time_horizon: int,
                               num_simulations: int,
                               tax_config: Optional[Dict] = None,
@@ -436,7 +477,7 @@ def exact_post_tax_all_trials(model, time_horizon: int,
                               stage_seconds: Optional[Dict] = None,
                               trial_values: Optional[Dict] = None) -> Dict:
     """Exact post-tax percentiles of every trial (the reference's
-    ``exact_post_tax_all_trials``, single device): chunks of at most
+    ``exact_post_tax_all_trials``): chunks of at most
     ``chunk_size`` trials re-run on the general path with journal
     emission (start method, antithetic pairing and trial layout from the
     configuration), the strategies folded into bridge batches
@@ -448,17 +489,22 @@ def exact_post_tax_all_trials(model, time_horizon: int,
     ``on_nonfinite``: "raise" fails on a trial with non-finite yearly
     activity or tax, naming the strategy and chunk; "record" drops such
     trials from the percentiles and counts them in ``nonfinite_trials``.
-    A ``mesh`` raises: multi-device runs are ROADMAP section 1 item 17.
+    ``mesh`` (a ``TrialMesh`` of several shards), with FIFO: each full
+    chunk whose size the shard count divides runs its emission, bridge and
+    tax on each shard's slice of it; partial tails and the elected lot
+    orders take the single-device path on the mesh's first device, which
+    takes the place of ``device`` (the reference's rule,
+    letf_tpu/reporting.py:419-446).
     ``stage_seconds`` receives the seconds of "emission", "bridge", "tax"
     and "reduce"; ``trial_values``, when given, receives {sid: (pre-tax,
     post-tax)} numpy vectors of the kept trials, which the percentiles
     reduce. Returns {sid: {n_trials, nonfinite_trials, median_tax,
     exact_all_trials, pre_tax_pXX, post_tax_pXX}}."""
     from letf_tpu_torch.parallel.mc_runner import (
-        _check_single_device,
+        _mesh_of,
         _Run,
+        _Shards,
         _trial_layout,
-        general_chunk,
     )
 
     if on_nonfinite not in ("raise", "record"):
@@ -467,52 +513,41 @@ def exact_post_tax_all_trials(model, time_horizon: int,
     if lot_method not in ELECTION_METHODS:
         raise ValueError(f"lot_method must be one of {ELECTION_METHODS}, "
                          f"got {lot_method!r}")
-    _check_single_device(mesh)
+    mesh = _mesh_of(mesh, device)
     if strategy_ids is None:
         strategy_ids = list(cfg.TAXABLE_IDS)
-    run = _Run(model, time_horizon, num_simulations, seed, chunk_size,
-               device=device)
+    shards = _Shards(mesh, lambda d: _Run(
+        model, time_horizon, num_simulations, seed, chunk_size, device=d))
+    run = shards.run
     dev = run.device
-    dt = glue_dtype(dev)
-    n = run.num_simulations
+    n, cs = run.num_simulations, run.chunk_size
+    sharded = (mesh.size > 1 and lot_method == "FIFO"
+               and cs % mesh.size == 0)
     income, tax_kw = tax_setup(tax_config, time_horizon)
     ids, anti = _trial_layout(n, run.use_antithetic)
     pre = {sid: [] for sid in strategy_ids}
     post = {sid: [] for sid in strategy_ids}
     nonfinite = {sid: 0 for sid in strategy_ids}
-    for lo in range(0, n, run.chunk_size):
-        hi = min(n, lo + run.chunk_size)
+    for lo in range(0, n, cs):
+        hi = min(n, lo + cs)
         n_here = hi - lo
+        groups = _bridge_groups(strategy_ids, n_here)
+
+        def taxed(r, i, a):
+            return _taxed_chunk(r, i, a, strategy_ids, groups, lot_method,
+                                time_horizon, income, tax_kw, stage_seconds)
+
+        if sharded and n_here == cs:
+            outs = shards.map(taxed, ids[lo:hi], anti[lo:hi])
+        else:
+            outs = [taxed(run, ids[lo:hi], anti[lo:hi])]
         t0 = time.perf_counter()
-        summ, emission = general_chunk(run, ids[lo:hi], anti[lo:hi],
-                                       apply_costs=True)
-        emission = [e if e.dtype == torch.int8 else e.to(dt)
-                    for e in emission]
-        fw = summ["final_wealth"]
-        del summ
-        _mark(stage_seconds, "emission", t0, dev)
-        lot_cap = None
-        if lot_method != "FIFO":
-            worst = max(max_buy_events(*bridge_columns(
-                e[:, :, cfg.TAXABLE_IDS.index(sid)] for e in emission))
-                for sid in strategy_ids)
-            lot_cap = max(256, -(-worst // 256) * 256)
-        for gsids, assets in _bridge_groups(strategy_ids, n_here):
-            cols = torch.as_tensor([cfg.TAXABLE_IDS.index(s) for s in gsids],
-                                   device=dev)
-            G = len(gsids)
-            stacked = bridge_columns(
-                e[:, :, cols].reshape(e.shape[0], n_here * G)
-                for e in emission)
-            total, ok = bridge_activity_tax(
-                stacked, assets, time_horizon, income, tax_kw, lot_method,
-                lot_cap, stage_seconds)
-            del stacked
-            t0 = time.perf_counter()
-            total = total.reshape(n_here, G).cpu().numpy()
-            ok = ok.reshape(n_here, G).cpu().numpy()
+        fw = np.concatenate([o[0].cpu().numpy() for o in outs])
+        for g, (gsids, _) in enumerate(groups):
+            total = np.concatenate([o[1][g].cpu().numpy() for o in outs])
+            ok = np.concatenate([o[2][g].cpu().numpy() for o in outs])
             for gi, sid in enumerate(gsids):
-                w = fw[:, cfg.STRATEGY_INDEX[sid]].cpu().numpy()
+                w = fw[:, cfg.STRATEGY_INDEX[sid]]
                 bad = ~ok[:, gi]
                 if bad.any():
                     if on_nonfinite == "raise":
@@ -526,8 +561,8 @@ def exact_post_tax_all_trials(model, time_horizon: int,
                 pre[sid].append(w[~bad])
                 # Drag capped at 100%, as the reference's tables.
                 post[sid].append(np.maximum(w[~bad] - total[~bad, gi], 0.0))
-            _mark(stage_seconds, "reduce", t0, dev)
-        del emission, fw
+        _mark(stage_seconds, "reduce", t0, dev)
+        del outs
 
     t0 = time.perf_counter()
     out = {}

@@ -223,6 +223,33 @@ def rolling_var(x, window: int, min_periods: Optional[int] = None,
 _RESTART = 1e3 * float(np.finfo(np.float64).eps)
 
 
+def _prep(x):
+    """pandas' window input: float64, +-inf read as NaN."""
+    a = np.asarray(x, np.float64)
+    return np.where(np.isinf(a), NaN, a)
+
+
+def rolling_cov(x, y, window: int, min_periods: Optional[int] = None,
+                ddof: int = 1):
+    """``Series.rolling(window, min_periods).cov(other)``, pandas 3.0's
+    rule: each series first takes the other's NaNs (``x + 0 * y``, which
+    also makes NaN of a finite value facing an infinite one), then the
+    rolling means of x * y, x and y by ``rolling_mean``'s online rule, and
+    the count of rows where both are present by ``rolling_sum``:
+    ``(mean_xy - mean_x * mean_y) * count / (count - ddof)``."""
+    a = np.asarray(x, np.float64)
+    b = np.asarray(y, np.float64)
+    with np.errstate(all="ignore"):
+        xa, ya = _prep(a + 0 * b), _prep(b + 0 * a)
+        minp = window if min_periods is None else min_periods
+        mean_xy = rolling_mean(xa * ya, window, minp)
+        mean_x = rolling_mean(xa, window, minp)
+        mean_y = rolling_mean(ya, window, minp)
+        count = rolling_sum((~np.isnan(xa + ya)).astype(np.float64), window,
+                            0)
+        return (mean_xy - mean_x * mean_y) * (count / (count - ddof))
+
+
 def rolling_sum(x, window: int, min_periods: Optional[int] = None):
     """``Series.rolling(window, min_periods).sum()``: Kahan-summed adds and
     removes, a run of equal values read as ``value * nobs``."""

@@ -18,7 +18,8 @@
   pandas 3.0's rule) within 1e-12 of pandas on return-like series with
   the same NaN pattern.
 - The network loaders return None where their packages cannot be
-  imported, and raise naming ROADMAP item 14 where they can.
+  imported, and build their frames where they can (fakes); the route
+  itself is held to the JAX package in tests/test_torch_data_route.py.
 Every cache path of the port points at a temporary directory.
 """
 
@@ -31,6 +32,7 @@ import pytest
 from hypothesis import given, settings
 from hypothesis import strategies as hst
 
+from letf_tpu import config as jcfg
 from letf_tpu import data as jdata
 from letf_tpu_torch import config as tcfg
 from letf_tpu_torch import data as tdata
@@ -122,29 +124,44 @@ def test_offline_fetch_without_loaders_is_the_synthetic_route(monkeypatch):
 
 
 def test_network_loaders_gate(monkeypatch):
+    """Without their packages the loaders give None, as the reference's;
+    where the packages import (fakes here), they download and build the
+    reference's frames (held to the JAX package's in
+    tests/test_torch_data_route.py)."""
+    import sys
+    import types
+
     real = importlib.util.find_spec
     if real("pandas_datareader") is None and real("yfinance") is None:
         assert tdata.fetch_fama_french_data("1926-07-01", "1949-12-31") is None
         assert tdata.fetch_market_data("1950-01-01", "2025-12-31") is None
         assert jdata.fetch_market_data("1950-01-01", "2025-12-31") is None
 
-    def find_spec(name, *a, **kw):
-        if name in ("pandas_datareader", "yfinance"):
-            return object()
-        return real(name, *a, **kw)
-
-    monkeypatch.setattr(importlib.util, "find_spec", find_spec)
-    for fn in (tdata.fetch_fama_french_data, tdata.fetch_market_data):
-        with pytest.raises(NotImplementedError, match="ROADMAP item 14"):
-            fn("1950-01-01", "2025-12-31")
-    with pytest.raises(NotImplementedError, match="ROADMAP item 14"):
-        tdata.fetch_historical_data(force_synthetic=False)
+    idx = pd.bdate_range("1949-12-01", "1950-02-28")
+    ff = pd.DataFrame({"Mkt-RF": np.linspace(-1, 1, len(idx)),
+                       "RF": np.full(len(idx), 0.01)}, index=idx)
+    close = pd.DataFrame({"^GSPC": np.linspace(16.0, 17.0, len(idx))},
+                         index=idx)
+    web = types.ModuleType("pandas_datareader.data")
+    web.DataReader = lambda *a, **k: {0: ff}
+    yf = types.ModuleType("yfinance")
+    yf.download = lambda *a, **k: pd.concat({"Close": close}, axis=1)
+    monkeypatch.setitem(sys.modules, "pandas_datareader",
+                        types.ModuleType("pandas_datareader"))
+    monkeypatch.setitem(sys.modules, "pandas_datareader.data", web)
+    monkeypatch.setitem(sys.modules, "yfinance", yf)
+    got = tdata.fetch_fama_french_data("1926-07-01", "1949-12-31")
+    assert len(got) == len(idx) and got["Data_Source"][0] == "Fama-French"
+    mkt = tdata.fetch_market_data("1950-01-01", "2025-12-31")
+    assert mkt.columns == ["SPY_Price", "SPY_Ret", "VIX", "IRX", "Cash_Ret",
+                           "Data_Source"]
+    assert (mkt["IRX"] == 4.5).all() and np.isnan(mkt["SPY_Ret"][0])
 
 
 def test_backfill_branches(monkeypatch):
     """The VIX and IRX backfills of the offline route equal the
-    reference's pandas expressions; the dynamic-factor backfills (network
-    data only) raise naming item 14."""
+    reference's pandas expressions; the dynamic-factor backfills of TLT,
+    NASDAQ and QQQ equal the JAX package's route on the same frame."""
     gen = tdata.generate_synthetic_history
     df = gen("2024-01-01", "2025-12-31")
     rng = np.random.default_rng(3)
@@ -171,14 +188,28 @@ def test_backfill_branches(monkeypatch):
     np.testing.assert_array_equal(got["VIX"], want_vix.to_numpy())
     np.testing.assert_array_equal(got["IRX"], want_irx.to_numpy())
 
+    # The dynamic-factor backfills, against the JAX package's route on the
+    # same frame (its cache redirected too).
     df2 = gen("2024-01-01", "2025-12-31")
-    tlt = df2["TLT_Ret"].copy()
-    tlt[3] = np.nan
-    df2["TLT_Ret"] = tlt
+    jdf2 = jdata.generate_synthetic_history("2024-01-01", "2025-12-31")
+    for col, row in (("TLT_Ret", 3), ("NASDAQ_Ret", 7), ("QQQ_Ret", 9)):
+        v = df2[col].copy()
+        v[row] = np.nan
+        df2[col] = v
+        jdf2.iloc[row, jdf2.columns.get_loc(col)] = np.nan
     monkeypatch.setattr(tdata, "generate_synthetic_history", lambda: df2)
+    monkeypatch.setattr(jdata, "generate_synthetic_history", lambda: jdf2)
+    jdir = Path(tcfg.CACHE_DIR) / "jax"
+    monkeypatch.setattr(jcfg, "CACHE_DIR", jdir)
+    monkeypatch.setattr(jcfg, "DATA_CACHE", jdir / "historical_data.pkl")
+    monkeypatch.setattr(jcfg, "ANALYSIS_START_DATE", "2024-01-01")
     Path(tcfg.DATA_CACHE).unlink()
-    with pytest.raises(NotImplementedError, match="ROADMAP item 14"):
-        tdata.fetch_historical_data(force_synthetic=True)
+    got = tdata.fetch_historical_data(force_synthetic=True)
+    want = jdata.fetch_historical_data(force_synthetic=True)
+    for col in ("TLT_Ret", "NASDAQ_Ret", "QQQ_Ret"):
+        np.testing.assert_array_equal(got[col], want[col].to_numpy(),
+                                      err_msg=col)
+        assert np.isfinite(got[col]).all(), col
 
 
 def test_bdate_range_and_frame_selection():

@@ -270,7 +270,7 @@ def test_on_nonfinite_raise_and_record(model, chunk, monkeypatch):
 
 
 def test_exact_all_argument_errors(model):
-    with pytest.raises(NotImplementedError, match="ROADMAP.*item 17"):
+    with pytest.raises(TypeError, match="TrialMesh"):
         reporting.exact_post_tax_all_trials(model, 1, 8, mesh=object(),
                                             device="cpu")
     with pytest.raises(ValueError, match="on_nonfinite"):

@@ -26,7 +26,9 @@ from letf_tpu_torch.tax import brackets, engine
 PKG = Path(letf_tpu_torch.__file__).resolve().parent
 # The JAX package (every module of it, even those that import no JAX),
 # JAX itself, and pandas with the network loaders: the card's machine has
-# no pandas, and the port's data layer is its own day frame.
+# no pandas, and the port's data layer is its own day frame. (The data
+# layer's downloads load a network loader through importlib, and only when
+# they are called: no import statement names one.)
 REFUSED = ("jax", "jaxlib", "letf_tpu", "pandas", "pandas_datareader",
            "yfinance")
 ROOT = PKG.parent
@@ -101,6 +103,27 @@ def test_sources_have_no_jax_import_and_no_fallback():
             for n in names:
                 assert n.split(".")[0] not in REFUSED, (path, n)
         assert "torch.compile" not in path.read_text(), path
+
+
+def test_the_one_exception_boundary():
+    """utils/guard.guarded, which hands back what a call raised, is called
+    only by the chunk containment and the network downloads."""
+    callers = set()
+    for path in PKG.rglob("*.py"):
+        tree = ast.parse(path.read_text())
+        for node in ast.walk(tree):
+            if (isinstance(node, ast.Call)
+                    and isinstance(node.func, ast.Name)
+                    and node.func.id == "guarded"):
+                fn = next(f.name for f in ast.walk(tree)
+                          if isinstance(f, ast.FunctionDef)
+                          and f.lineno <= node.lineno <= f.end_lineno
+                          and f.name != "probe")
+                callers.add((path.relative_to(PKG).as_posix(), fn))
+    assert callers == {("parallel/mc_runner.py", "_context_poisoned"),
+                       ("parallel/mc_runner.py", "_dispatch_guarded"),
+                       ("data.py", "fetch_fama_french_data"),
+                       ("data.py", "fetch_market_data")}, callers
 
 
 def test_cuda_device_without_a_card_raises():

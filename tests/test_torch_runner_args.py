@@ -3,9 +3,9 @@
 ``monte_carlo_report`` and ``run_monte_carlo`` have the JAX package's
 parameters in name, default and order, with the port's own ``device`` and
 ``stage_seconds`` after them as keyword-only; a call shaped like
-``letf_tpu/runner.py::run_report``'s runs, and the arguments of what the
-port does not run yet (a mesh, checkpoint/resume, a chunk budget, the chunk
-containment) raise naming their ROADMAP item."""
+``letf_tpu/runner.py::run_report``'s runs, and the arguments of the
+reference's multi-device runs, checkpoint/resume, chunk budget and chunk
+containment run and keep the plain run's trials."""
 
 import inspect
 
@@ -74,19 +74,52 @@ def test_run_monte_carlo_accepts_dispatch_and_containment_knobs(model):
                                       np.asarray(vars(knobs)[k]), err_msg=k)
 
 
-UNPORTED = (("mesh", object()), ("checkpoint_dir", "ckpt"),
-            ("resume", True), ("max_chunks", 1), ("fault_tolerant", True))
+def _run_argument(arg, tmp_path):
+    """The keywords of one of the reference's runner arguments that the
+    port once refused: a two-shard CPU mesh, a checkpoint directory (also
+    resumed from, and under a chunk budget) and the chunk containment."""
+    from letf_tpu_torch.parallel.mesh import trial_mesh
+
+    ck = str(tmp_path / "ckpt")
+    return {"mesh": dict(mesh=trial_mesh(["cpu", "cpu"])),
+            "checkpoint_dir": dict(checkpoint_dir=ck),
+            "resume": dict(checkpoint_dir=ck, resume=True),
+            "max_chunks": dict(checkpoint_dir=ck, max_chunks=1),
+            "fault_tolerant": dict(fault_tolerant=True)}[arg]
 
 
-@pytest.mark.parametrize("arg,value", UNPORTED, ids=[a for a, _ in UNPORTED])
-def test_unported_run_argument_raises(model, arg, value):
-    with pytest.raises(NotImplementedError,
-                       match=f"{arg}.*ROADMAP.*item 17"):
-        tmc.run_monte_carlo(model, 1, num_simulations=N, device="cpu",
-                            **{arg: value})
+RUN_ARGS = ("mesh", "checkpoint_dir", "resume", "max_chunks",
+            "fault_tolerant")
 
 
-def test_report_mesh_raises(model):
-    with pytest.raises(NotImplementedError, match="mesh.*ROADMAP.*item 17"):
-        tmc.monte_carlo_report(model, 1, num_simulations=N, device="cpu",
-                               mesh=object())
+@pytest.mark.parametrize("arg", RUN_ARGS)
+def test_run_argument_runs(model, arg, tmp_path):
+    """Each argument runs and keeps the plain run's trials bit for bit
+    (one 64-trial chunk, 32 trials a CPU shard: see tests/test_torch_mesh.py
+    on the CPU's batch widths); ``max_chunks=1`` over chunks of 32 returns
+    the first 32."""
+    kw = dict(num_simulations=64, seed=SEED, chunk_size=64, progress=False,
+              device="cpu")
+    want = tmc.run_monte_carlo(model, 0.25, **kw)
+    n = 64
+    if arg == "max_chunks":
+        kw["chunk_size"] = n = 32
+    got = tmc.run_monte_carlo(model, 0.25, **_run_argument(arg, tmp_path),
+                              **kw)
+    assert got.final_wealth.shape == (n, 19)
+    for k in ("final_wealth", "num_trades", "max_dd", "start_offset",
+              "trial_ids"):
+        np.testing.assert_array_equal(getattr(got, k),
+                                      getattr(want, k)[:n], err_msg=k)
+    assert (got.chunk_failed is not None) == (arg == "fault_tolerant")
+
+
+def test_report_mesh_runs(model):
+    from letf_tpu_torch.parallel.mesh import trial_mesh
+
+    kw = dict(num_simulations=64, seed=SEED, chunk_size=64,
+              tax_mode="none", device="cpu")
+    got = tmc.monte_carlo_report(model, 0.25, mesh=trial_mesh(["cpu", "cpu"]),
+                                 **kw)
+    assert got == tmc.monte_carlo_report(model, 0.25, **kw)
+    assert got["n_trials"] == 64

@@ -153,8 +153,9 @@ def test_unported_modes_raise(model):
     tests/test_torch_sampled_report.py; exact_all:
     tests/test_torch_exact_tax.py); trade emission is emit_trade_lists',
     not a run_monte_carlo argument, as in the JAX package; an unknown
-    engine mode is a ValueError; a mesh, checkpoint/resume, max_chunks and
-    fault_tolerant raise naming item 17."""
+    engine mode is a ValueError, a mesh that is not a TrialMesh a
+    TypeError; a chunk budget under the containment returns the first
+    chunk's trials."""
     pools = build_bootstrap_pools(
         generate_synthetic_history("2015-01-01", "2025-12-31"))
     kw = dict(num_simulations=4, device="cpu", engine_mode="legacy_hybrid",
@@ -170,12 +171,12 @@ def test_unported_modes_raise(model):
     with pytest.raises(ValueError, match="engine_mode"):
         mc_runner.run_monte_carlo(model, 1, num_simulations=8,
                                   engine_mode="bootstrap", device="cpu")
-    for arg, value in (("mesh", object()), ("checkpoint_dir", "ckpt"),
-                       ("resume", True), ("max_chunks", 1),
-                       ("fault_tolerant", True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP.*item 17"):
-            mc_runner.run_monte_carlo(model, 1, num_simulations=8,
-                                      device="cpu", **{arg: value})
-    with pytest.raises(NotImplementedError, match="ROADMAP.*item 17"):
-        mc_runner.monte_carlo_report(model, 1, num_simulations=8,
-                                     device="cpu", mesh=object())
+    for entry in (mc_runner.run_monte_carlo, mc_runner.monte_carlo_report):
+        with pytest.raises(TypeError, match="TrialMesh"):
+            entry(model, 1, num_simulations=8, device="cpu", mesh=object())
+    budget = mc_runner.run_monte_carlo(model, 0.25, progress=False,
+                                       chunk_size=2, max_chunks=1,
+                                       fault_tolerant=True, **kw)
+    np.testing.assert_array_equal(budget.final_wealth,
+                                  arrays.final_wealth[:2])
+    assert not budget.chunk_failed.any()
