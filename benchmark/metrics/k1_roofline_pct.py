@@ -1,0 +1,7 @@
+"""K1's share of its roofline in the traced report: the least time of
+its launches (``benchmark/rooflines/k1.py`` at the chunk's shape, against
+``harness/peaks.py``) over their device time in the profiler trace."""
+
+
+def read(run):
+    return run.roofline_pct("k1")
