@@ -33,7 +33,11 @@ Phases, each raising on failure:
    path's channels; with --quick here, at 16,384 x 252 days). Each
    kernel's time beside the plain version's, its bound and, where one
    PyTorch call computes the same function, that call's time; K1, K2 and K3 as min/median/max over 5, 5 and 3 runs,
-   K1 and K3 also on the chunk's first 4,096 trials (3 runs).
+   K1 and K3 also on the chunk's first 4,096 trials (3 runs). Then the
+   samplers (csrc/draws.cu, phase_draws): the parametric 10-year
+   report's seven normal and t calls over 16,384 keys (1,024 with
+   --quick), each bitwise its torch twin, timed beside it, with their
+   integer floor.
 4. Reports through kernels vs plain versions on the card: 1,024 trials x
    0.5 year pre-tax, and the default sampled report at 1,024 x 1 year.
 5. The general path against the slab path (K1, K2, K3): with the emitting
@@ -349,9 +353,10 @@ def counters():
     from letf_tpu_torch.ops import compose, gbm, joint, sort_bridge
     from letf_tpu_torch.ops import compose_strategies as k3
     from letf_tpu_torch.ops import strategies as k4
-    from letf_tpu_torch.ops import wash, window
+    from letf_tpu_torch.ops import rng, wash, window
 
     return {"joint": (joint, "LAUNCHES"), "window": (window, "LAUNCHES"),
+            "draws": (rng, "LAUNCHES"),
             "window_tiles": (sys.modules[__name__], "GENERAL_WINDOWS"),
             "compose_strategies": (k3, "LAUNCHES"),
             "strategies": (k4, "LAUNCHES"), "compose": (compose, "LAUNCHES"),
@@ -1079,7 +1084,7 @@ def phase_pretax(model, counters):
     assert launches["joint"] == chunks, launches
     assert launches["compose_strategies"] == chunks, launches
     assert launches["window"] == chunks, launches
-    for k in ("window_tiles", "compose", "strategies", "gbm"):
+    for k in ("window_tiles", "compose", "strategies", "gbm", "draws"):
         assert launches[k] == 0, launches
     return launches
 
@@ -1652,6 +1657,92 @@ def phase_k4(chans, fused_plain_days=504, digests=False,
                       OPS_PER_TRIAL_DAY["strategies"] * S * B)
 
 
+# The parametric 16,384-trial 10-year report's sampler calls
+# (path_engine.draw_innovations and generate_returns_parametric), float32:
+# (name, sampler, parameter, draws a trial) at T days (10 years and the
+# 5-year buffer) and S simulated days.
+DRAW_T, DRAW_S = 15 * 252, 10 * 252
+DRAW_CALLS = (("vix_normal", "normal", None, DRAW_T),
+              ("irx_normal", "normal", None, DRAW_T),
+              ("stress_normal", "normal", None, 2 * DRAW_S),
+              ("jump_t5", "t", 5.0, DRAW_S),
+              ("te_t5", "t", 5.0, 4 * DRAW_S),
+              ("te_t10", "t", 10.0, 2 * DRAW_S),
+              ("returns_t5", "t", 5.0, 3 * DRAW_T))
+# threefry2x32 hashes of a draw (csrc/draws.cu): a normal 1; a t 8 (its
+# normal, and its gamma's element key, that key's split, the x key, the
+# normal key, the normal, the U key, U) when the gamma accepts its first
+# x; redraws and rejections add more, so the count is a floor. The rows'
+# split keys (2 a row) are left out.
+DRAW_HASHES = {"normal": 1, "t": 8}
+# SASS instructions of one hash in the sm_90a build, counted in cuobjdump
+# -sass of draws.cu's normal_kernel<float> (its one hash, unrolled: 68
+# instructions from the counter's key add to the last key injection):
+# 56 on the integer ALU pipe (15 IADD3, 21 LOP3: 20 xors and the key's
+# parity word, 20 SHF.L.W rotates; 64 lanes an SM a clock on sm_90) and 12
+# IMAD.IADD adds the compiler put on the FMA pipe; every instruction takes
+# an issue slot (4 schedulers x 32 lanes an SM a clock). The float work
+# (the mantissa fill, erf_inv, the Marsaglia-Tsang test, the logs) is not
+# counted.
+HASH_SASS = {"alu": 56, "all": 68}
+
+
+def draws_bound_ms(hashes: float, sms: int, clock_hz: float):
+    """The integer floor of ``hashes`` threefry hashes on the card: the
+    ALU pipe's instructions at 64 lanes an SM a clock, or all at 128,
+    whichever takes longer."""
+    per_sm_clock = max(HASH_SASS["alu"] / 64, HASH_SASS["all"] / 128)
+    return hashes * per_sm_clock / (sms * clock_hz) * 1e3
+
+
+def phase_draws(quick: bool):
+    """The samplers' kernel (csrc/draws.cu through rng.normal and rng.t on
+    CUDA keys) on the parametric report's seven calls (DRAW_CALLS) over
+    16,384 keys (1,024 with ``quick``), each bitwise the torch twin
+    (rng._normal_plain, rng._t_plain) on the same keys, timed beside it
+    (the kernel min/median/max over 5 runs, 2 with ``quick``; the twin
+    once), with its integer floor (draws_bound_ms)."""
+    from letf_tpu_torch.ops import rng
+
+    B, reps = (1024, 2) if quick else (B_CHUNK, 5)
+    props = torch.cuda.get_device_properties(0)
+    mhz = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.split()[0]
+    clock = float(mhz) * 1e6
+    kernel = {"normal": rng.normal, "t": rng.t}
+    twin = {"normal": rng._normal_plain, "t": rng._t_plain}
+    shapes, tot = {}, dict(ms=[0.0, 0.0, 0.0], plain_ms=0.0, bound_ms=0.0)
+    for i, (name, kind, param, n) in enumerate(DRAW_CALLS):
+        keys = rng.split(rng.key(100 + i, "cuda"), B)
+        args = (keys, n) if param is None else (keys, param, n)
+        before = rng.LAUNCHES
+        ms, got = spread(lambda: kernel[kind](*args), reps)
+        assert rng.LAUNCHES == before + reps + 1, (name, rng.LAUNCHES)
+        plain_ms, ref = timed(lambda: twin[kind](*args), 1, warm=False)
+        same = torch.equal(got.view(torch.int32), ref.view(torch.int32))
+        assert same and bool(torch.isfinite(got).all()), name
+        b_ms = draws_bound_ms(B * n * DRAW_HASHES[kind],
+                              props.multi_processor_count, clock)
+        shapes[name] = dict(draws=B * n, ms_spread=ms, plain_ms=plain_ms,
+                            bound_ms=b_ms)
+        tot["ms"] = [a + b for a, b in zip(tot["ms"], ms)]
+        tot["plain_ms"] += plain_ms
+        tot["bound_ms"] += b_ms
+        del got, ref
+    log(f"draws: the parametric report's {len(DRAW_CALLS)} sampler calls at "
+        f"{B} keys, float32, each bitwise the twin; kernel "
+        f"{fmt_spread(tot['ms'])} summed over the calls, twin "
+        f"{tot['plain_ms']:.3f} ms, integer floor {tot['bound_ms']:.3f} ms "
+        f"({props.multi_processor_count} SMs at {mhz} MHz): "
+        + json.dumps(shapes))
+    torch.cuda.empty_cache()
+    return dict(max_abs_err=0.0, ms=tot["ms"][1], ms_spread=tot["ms"],
+                plain_ms=tot["plain_ms"], bound_ms=tot["bound_ms"],
+                bound_by="operations", library_ms=None, shapes=shapes)
+
+
 def phase_k6(n=1_048_576, years=30, reps=5, gate=True):
     """K6 against its plain version on the card at n trials x years. Both
     draw the same counter bits and compound the same float32 growth
@@ -1893,6 +1984,7 @@ def phase_parametric(model, counters):
     assert len([s for s in rep["strategies"].values()
                 if "post_tax" in s]) == 13
     assert launches["strategies"] == chunks, launches
+    assert launches["draws"] >= 7 * chunks, launches
     for k in ("joint", "window", "window_tiles", "compose_strategies",
               "compose", "gbm"):
         assert launches[k] == 0, launches
@@ -4331,6 +4423,9 @@ KERNELS = {   # name -> (source, the TPU kernel it replaces, its path)
                     "letf_tpu/ops/pallas_sort.py:74", "default_report"),
     "wash": ("letf_tpu_torch/csrc/wash.cu", "letf_tpu/ops/pallas_wash.py:107",
              "default_report"),
+    "draws": ("letf_tpu_torch/csrc/draws.cu",
+              "none (jax.random in XLA: letf_tpu/ops/path_engine.py)",
+              "parametric_report"),
 }
 
 
@@ -4373,6 +4468,7 @@ def main():
     model = default_sim_model()
     model_t = from_numpy(model, "cuda", torch.float32)
     rec = run_phase("kernels", phase_kernels, model_t, args.quick)
+    rec["draws"] = run_phase("draws", phase_draws, args.quick)
     if args.quick:
         rec["strategies"] = phase_k4(general_channels(model_t, QUICK["sim"]))
         rec["gbm"] = phase_k6(n=65_536, years=1, reps=2, gate=False)

@@ -11,6 +11,7 @@ extern "C" int letf_info_compose(int* out);
 extern "C" int letf_info_gbm(int* out);
 extern "C" int letf_info_merge(int* out);
 extern "C" int letf_info_wash(int* out);
+extern "C" int letf_info_draws(int which, int* out);
 
 extern "C" int letf_kernel_info(int which, int* out) {
   switch (which) {
@@ -23,6 +24,9 @@ extern "C" int letf_kernel_info(int which, int* out) {
     case 6: return letf_info_gbm(out);
     case 7: return letf_info_merge(out);
     case 8: return letf_info_wash(out);
+    case 9: return letf_info_draws(0, out);
+    case 10: return letf_info_draws(1, out);
+    case 11: return letf_info_draws(2, out);
     default: return 1;   // cudaErrorInvalidValue
   }
 }

@@ -12,7 +12,11 @@ Flags: sm_90a, -O3, and ``-fmad=false`` so that ``a*b + c`` is not
 contracted to an FMA: the kernels then round like their plain PyTorch
 versions op by op, and borderline strategy compares flip less between the
 two. No ``--use_fast_math``: the fast intrinsics would move the Box-Muller
-normals by far more than ulps.
+normals by far more than ulps. The sources of ``FMAD_SOURCES`` keep nvcc's
+default ``-fmad=true``, as torch's own kernels are built: they call
+libdevice functions that must give torch's bits (float64 ``pow``
+contracts its own products) and write their arithmetic with the ``_rn``
+intrinsics, which are never contracted.
 """
 
 from __future__ import annotations
@@ -31,11 +35,14 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "letf_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-fmad=false")
+FMAD_SOURCES = ("draws.cu",)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _U = ctypes.c_uint
 _F = ctypes.c_float
+_L = ctypes.c_longlong
+_D = ctypes.c_double
 # C signatures of the entries (csrc/*.cu); the last argument is the stream.
 SIGNATURES = {
     "letf_joint": [_P, _P, _I, _P, _P, _P, _U, _U, _I, _I,
@@ -49,13 +56,17 @@ SIGNATURES = {
     "letf_wash": [_P, _P, _P, _I, _I, _P, _P, _P, _P, _P],
     "letf_strategies": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P],
     "letf_gbm": [_U, _U, _I, _I, _I, _F, _F, _F, _F, _P, _P, _P],
+    "letf_draw_normal": [_P, _L, _L, _L, _I, _P, _P],
+    "letf_draw_gamma": [_P, _L, _L, _D, _I, _I, _P, _P],
+    "letf_draw_t": [_P, _L, _L, _D, _P, _I, _P, _P],
     "letf_kernel_info": [_I, _P],
     "letf_joint_math_check": [_P, _P, _I, _P, _P],
 }
 # The kernels letf_kernel_info reports on, in its index order (csrc/info.cu),
 # and the fields of each report (common.cuh::letf_fill_info).
 KERNEL_INFO = ("joint", "window", "compose_strategies", "strategies",
-               "strategies_fused", "compose", "gbm", "merge", "wash")
+               "strategies_fused", "compose", "gbm", "merge", "wash",
+               "draws_normal", "draws_gamma", "draws_t")
 INFO_FIELDS = ("registers", "static_smem", "dynamic_smem", "local_bytes",
                "threads", "blocks_per_sm", "warps_per_sm")
 
@@ -73,9 +84,18 @@ def _nvcc() -> str:
                        "machine with the CUDA toolkit")
 
 
+def source_flags(name: str) -> tuple:
+    """nvcc's flags for source ``name``: NVCC_FLAGS, with -fmad=true for
+    the FMAD_SOURCES."""
+    if name not in FMAD_SOURCES:
+        return NVCC_FLAGS
+    return tuple("-fmad=true" if f == "-fmad=false" else f
+                 for f in NVCC_FLAGS)
+
+
 def library_path() -> Path:
     srcs = sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + FMAD_SOURCES).encode())
     for s in srcs:
         h.update(s.name.encode())
         h.update(s.read_bytes())
@@ -94,8 +114,9 @@ def build(verbose: bool = False) -> Path:
     tag = f"tmp{os.getpid()}"
     srcs = sorted(CSRC.glob("*.cu"))
     objs = [BUILD_DIR / f"{s.stem}.{tag}.o" for s in srcs]
-    cmds = [[nvcc, *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-             "-c", "-o", str(o), str(s)] for s, o in zip(srcs, objs)]
+    cmds = [[nvcc, *source_flags(s.name),
+             *(["-Xptxas", "-v"] if verbose else []), "-c", "-o", str(o),
+             str(s)] for s, o in zip(srcs, objs)]
     procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
                               stderr=subprocess.STDOUT, text=True)
              for c in cmds]

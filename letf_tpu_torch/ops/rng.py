@@ -11,6 +11,10 @@ Two families, both computed on int64 tensors that hold uint32 values
   tensor ``[..., 2]`` holding the two uint32 words of
   ``jax.random.key_data``. The stream discipline of
   ``letf_tpu/ops/rng.py`` (``trial_key``, ``stream``, stream ids) is kept.
+  ``normal``, ``gamma`` and ``t`` launch ``csrc/draws.cu`` for CUDA keys
+  (one thread a draw, the rejection loops inside the thread, bitwise the
+  torch twin ``_normal_plain``, ``_gamma_plain``, ``_t_plain`` on the
+  card) and run the twin for CPU keys.
 - the murmur3 counter mixers of the Pallas kernels and of the regime
   spells: ``mix`` / ``bits_to_unit`` (``letf_tpu/ops/pallas_joint.py``)
   and ``counter_uniforms`` (``letf_tpu/ops/path_batched.py``). The CUDA
@@ -23,6 +27,7 @@ import math
 
 import torch
 
+from letf_tpu_torch.ops import _build
 from letf_tpu_torch.utils import profiling
 
 MASK32 = 0xFFFFFFFF
@@ -269,12 +274,86 @@ def _blocks(B: int, n: int, block: int):
     return [(lo, min(n, lo + cols)) for lo in range(0, n, cols)]
 
 
+# ---- the samplers' entries: the kernel for CUDA keys, the twin for CPU ----
+
+LAUNCHES = 0      # csrc/draws.cu entry calls by normal, gamma and t
+_KERNEL_DTYPES = {torch.float32: 0, torch.float64: 1}
+
+
+def _launch(entry: str, keys: torch.Tensor, n: int, dtype: torch.dtype,
+            *args) -> torch.Tensor:
+    """One ``csrc/draws.cu`` launch over the flat draws of keys [..., 2]:
+    ``[..., n]`` in ``dtype``, on the current stream, with no read of a
+    device value. Counts ``fused_draws`` (and no ``draw_rounds``: the
+    rejection loops run inside the kernel's threads)."""
+    global LAUNCHES
+    if dtype not in _KERNEL_DTYPES:
+        raise TypeError(f"{entry}: unsupported dtype {dtype} on CUDA")
+    if keys.dtype != torch.int64:
+        raise TypeError(f"{entry}: keys must be int64, got {keys.dtype}")
+    flat = keys.reshape(-1, 2).contiguous()
+    out = torch.empty((flat.shape[0], n), dtype=dtype, device=keys.device)
+    if out.numel():
+        rc = getattr(_build.library(), entry)(
+            flat.data_ptr(), flat.shape[0], n, *args,
+            _KERNEL_DTYPES[dtype], out.data_ptr(), _build.stream_of(out))
+        _build.check(rc, entry)
+        LAUNCHES += 1
+    profiling.count("fused_draws", out.numel())
+    return out.reshape(*keys.shape[:-1], n)
+
+
 def normal(keys: torch.Tensor, n: int = 1,
            dtype: torch.dtype = torch.float32, lo: int = 0,
            block: int = 1 << 24) -> torch.Tensor:
     """``jax.random.normal(k, shape, dtype)`` per key for the flat counters
-    lo..lo+n-1 of the shape: ``[..., n]``, computed in column blocks of at
-    most ``block`` draws (memory only; no value changes)."""
+    lo..lo+n-1 of the shape: ``[..., n]``. CUDA keys launch
+    ``csrc/draws.cu``; CPU keys run the twin ``_normal_plain`` in column
+    blocks of at most ``block`` draws (memory only; no value changes)."""
+    if keys.is_cuda:
+        return _launch("letf_draw_normal", keys, n, dtype, lo)
+    profiling.count("plain_draws", keys.numel() // 2 * n)
+    return _normal_plain(keys, n, dtype, lo, block)
+
+
+def gamma(keys: torch.Tensor, alpha: float, n: int,
+          dtype: torch.dtype = torch.float32,
+          block: int = 1 << 24) -> torch.Tensor:
+    """``jax.random.gamma(k, alpha, shape, dtype)`` per key [B, 2], the
+    shape's n elements flat: ``[B, n]`` (``_gamma_impl``: one split key per
+    element). CUDA keys launch ``csrc/draws.cu``, each thread running its
+    element's rejection loop; CPU keys run the twin ``_gamma_plain``."""
+    if keys.is_cuda:
+        profiling.count("draw_rounds", 0)
+        return _launch("letf_draw_gamma", keys, n, dtype, float(alpha),
+                       int(alpha >= 1.0))
+    profiling.count("plain_draws", keys.shape[0] * n)
+    return _gamma_plain(keys, alpha, n, dtype, block)
+
+
+def t(keys: torch.Tensor, df: float, n: int,
+      dtype: torch.dtype = torch.float32,
+      block: int = 1 << 24) -> torch.Tensor:
+    """``jax.random.t(k, df, shape, dtype)`` per key [B, 2], flat: ``[B,
+    n]``: z * sqrt((df/2) / gamma(df/2)) of (normal key, gamma key) =
+    split(key). CUDA keys launch ``csrc/draws.cu``; CPU keys run the twin
+    ``_t_plain``."""
+    if keys.is_cuda:
+        profiling.count("draw_rounds", 0)
+        # The rows' split keys, written by the entry's first kernel.
+        row_keys = torch.empty((keys.numel() // 2, 4), dtype=torch.int32,
+                               device=keys.device)
+        return _launch("letf_draw_t", keys, n, dtype, float(df),
+                       row_keys.data_ptr())
+    profiling.count("plain_draws", keys.shape[0] * n)
+    return _t_plain(keys, df, n, dtype, block)
+
+
+# ---- the twin: the samplers as torch ops ----
+
+def _normal_plain(keys: torch.Tensor, n: int = 1,
+                  dtype: torch.dtype = torch.float32, lo: int = 0,
+                  block: int = 1 << 24) -> torch.Tensor:
     lead = keys.shape[:-1]
     flat = keys.reshape(-1, 2)
     out = torch.empty((flat.shape[0], n), dtype=dtype, device=keys.device)
@@ -289,7 +368,7 @@ def normal(keys: torch.Tensor, n: int = 1,
 
 
 def _scalar_normal(keys, dtype):
-    return normal(keys, 1, dtype)[..., 0]
+    return _normal_plain(keys, 1, dtype)[..., 0]
 
 
 def _gamma_one(keys: torch.Tensor, alpha: float,
@@ -356,29 +435,23 @@ def _gamma_cols(keys, alpha: float, lo: int, hi: int, dtype):
     return _gamma_one(ek, alpha, dtype).reshape(keys.shape[0], hi - lo)
 
 
-def gamma(keys: torch.Tensor, alpha: float, n: int,
-          dtype: torch.dtype = torch.float32,
-          block: int = 1 << 24) -> torch.Tensor:
-    """``jax.random.gamma(k, alpha, shape, dtype)`` per key [B, 2], the
-    shape's n elements flat: ``[B, n]`` (``_gamma_impl``: one split key per
-    element), in column blocks of at most ``block`` draws."""
+def _gamma_plain(keys: torch.Tensor, alpha: float, n: int,
+                 dtype: torch.dtype = torch.float32,
+                 block: int = 1 << 24) -> torch.Tensor:
     out = torch.empty((keys.shape[0], n), dtype=dtype, device=keys.device)
     for lo, hi in _blocks(keys.shape[0], n, block):
         out[:, lo:hi] = _gamma_cols(keys, alpha, lo, hi, dtype)
     return out
 
 
-def t(keys: torch.Tensor, df: float, n: int,
-      dtype: torch.dtype = torch.float32,
-      block: int = 1 << 24) -> torch.Tensor:
-    """``jax.random.t(k, df, shape, dtype)`` per key [B, 2], flat: ``[B,
-    n]``. (normal key, gamma key) = split(key); the draw is
-    z * sqrt((df/2) / gamma(df/2)), in column blocks."""
+def _t_plain(keys: torch.Tensor, df: float, n: int,
+             dtype: torch.dtype = torch.float32,
+             block: int = 1 << 24) -> torch.Tensor:
     ks = split(keys, 2)
     half = torch.tensor(df, dtype=dtype, device=keys.device) / 2.0
     out = torch.empty((keys.shape[0], n), dtype=dtype, device=keys.device)
     for lo, hi in _blocks(keys.shape[0], n, block):
-        z = normal(ks[:, 0], hi - lo, dtype, lo=lo)
+        z = _normal_plain(ks[:, 0], hi - lo, dtype, lo=lo)
         g = _gamma_cols(ks[:, 1], float(half), lo, hi, dtype)
         out[:, lo:hi] = z * torch.sqrt(half / g)
     return out

@@ -23,7 +23,9 @@ Counters: ``syncs`` is every host-device synchronisation made while
 tracing is on, charged to the span open in the thread that made it
 (torch's sync debug mode warns at each synchronising call; the tracer
 counts the warnings and drops them). Other modules count their own
-events (``draw_rounds``: ``ops/rng._gamma_one``).
+events (``ops/rng``: ``draw_rounds``, the twin's gamma rejection rounds,
+0 from the kernel; ``fused_draws`` and ``plain_draws``, the elements the
+samplers' kernel and their torch twin drew).
 
 The open span is a context variable: each thread has its own stack, and
 ``utils/guard.guarded`` hands the caller's span to its worker thread.

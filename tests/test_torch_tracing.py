@@ -146,7 +146,8 @@ def test_spans_are_cpu_ops_on_the_profilers_clock(model, mode, tmp_path):
 
 def test_draw_rounds_count_the_gamma_loops(monkeypatch):
     """Each outer round and each inner redraw of ``_gamma_one`` splits a
-    key once more than the first split of its element keys."""
+    key once more than the first split of its element keys; the CPU twin
+    counts its draws as ``plain_draws``."""
     calls = []
     real = rng.split
     monkeypatch.setattr(rng, "split",
@@ -158,7 +159,8 @@ def test_draw_rounds_count_the_gamma_loops(monkeypatch):
     assert torch.isfinite(g).all()
     (rec,) = profiling.records()
     assert len(calls) > 2
-    assert rec.counters == {"draw_rounds": len(calls) - 1}
+    assert rec.counters == {"draw_rounds": len(calls) - 1,
+                            "plain_draws": 64 * 40}
 
 
 def test_a_sync_warning_counts_on_the_open_span():
