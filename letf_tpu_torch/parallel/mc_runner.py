@@ -570,8 +570,11 @@ def monte_carlo_report(model: SimModel | Dict | None, time_horizon: float,
     summaries reduced on the device, only the report reaches the host.
     ``tax_mode="sampled"`` (the default) adds the post-tax tables of the
     13 taxable strategies under ``strategies[sid]["post_tax"]`` and
-    ``post_tax_seconds``, ``tax_mode`` and ``tax_config`` at the top
-    level; ``"exact_all"`` gives the same keys from every trial's exact
+    ``post_tax_seconds``, ``tax_mode``, ``tax_config`` and
+    ``post_tax_sample`` (each table's sampled rows, their pre-tax wealth
+    and exact tax: ``reporting.sampled_post_tax_tables``'s ``sample``) at
+    the top level, the post-tax part in the span ``post_tax``;
+    ``"exact_all"`` gives the same keys from every trial's exact
     tax (``reporting.exact_post_tax_all_trials``, called as the reference
     calls it: chunks of at most 4,096 trials, the start method and
     pairing of the configuration); ``"none"`` is the pre-tax report
@@ -642,32 +645,38 @@ def monte_carlo_report(model: SimModel | Dict | None, time_horizon: float,
             from letf_tpu_torch import reporting
 
             t_tax = time.perf_counter()
-            if tax_mode == "sampled":
-                post = reporting.sampled_post_tax_tables(
-                    model, cat["final_wealth"], time_horizon, n, seed,
-                    tax_config, mode, run.random_start_method,
-                    run.buffer_days, run.use_antithetic, tuple(percentiles),
-                    cashflows=cashflows, anchors=anchors, device=device,
-                    stage_seconds=stage_seconds)
-                for sid, entry in post.items():
-                    report["strategies"][sid]["post_tax"] = entry
-            else:
-                exact = reporting.exact_post_tax_all_trials(
-                    model, time_horizon, n, tax_config=tax_config, seed=seed,
-                    chunk_size=min(cs, 4096), percentiles=tuple(percentiles),
-                    device=device, stage_seconds=stage_seconds)
-                for sid, entry in exact.items():
-                    report["strategies"][sid]["post_tax"] = {
-                        "wealth": {f"p{p}": entry[f"post_tax_p{p}"]
-                                   for p in percentiles},
-                        "cagr": {f"p{p}": float(
-                            (max(entry[f"post_tax_p{p}"], 1e-12) / cap)
-                            ** (1.0 / time_horizon) - 1.0)
-                            for p in percentiles},
-                        "median_tax": entry["median_tax"],
-                        "n_sampled": entry["n_trials"],
-                        "method": "exact-all device bridge (every trial)",
-                    }
+            with profiling.span("post_tax"):
+                if tax_mode == "sampled":
+                    sample: Dict = {}
+                    post = reporting.sampled_post_tax_tables(
+                        model, cat["final_wealth"], time_horizon, n, seed,
+                        tax_config, mode, run.random_start_method,
+                        run.buffer_days, run.use_antithetic,
+                        tuple(percentiles), cashflows=cashflows,
+                        anchors=anchors, device=device,
+                        stage_seconds=stage_seconds, sample=sample)
+                    for sid, entry in post.items():
+                        report["strategies"][sid]["post_tax"] = entry
+                    report["post_tax_sample"] = sample
+                else:
+                    exact = reporting.exact_post_tax_all_trials(
+                        model, time_horizon, n, tax_config=tax_config,
+                        seed=seed, chunk_size=min(cs, 4096),
+                        percentiles=tuple(percentiles), device=device,
+                        stage_seconds=stage_seconds)
+                    for sid, entry in exact.items():
+                        report["strategies"][sid]["post_tax"] = {
+                            "wealth": {f"p{p}": entry[f"post_tax_p{p}"]
+                                       for p in percentiles},
+                            "cagr": {f"p{p}": float(
+                                (max(entry[f"post_tax_p{p}"], 1e-12) / cap)
+                                ** (1.0 / time_horizon) - 1.0)
+                                for p in percentiles},
+                            "median_tax": entry["median_tax"],
+                            "n_sampled": entry["n_trials"],
+                            "method": "exact-all device bridge (every "
+                                      "trial)",
+                        }
             report["post_tax_seconds"] = round(time.perf_counter() - t_tax, 3)
             report["tax_mode"] = tax_mode
             report["tax_config"] = {

@@ -313,7 +313,8 @@ def sampled_post_tax_tables(model, fw_dev, time_horizon: int,
                             max_tax_sims: Optional[int] = None,
                             cashflows=None, anchors=None,
                             bootstrap_pools=None, *, device="cuda",
-                            stage_seconds: Optional[Dict] = None) -> Dict:
+                            stage_seconds: Optional[Dict] = None,
+                            sample: Optional[Dict] = None) -> Dict:
     """Post-tax tables of the report, with the reference's parameters:
     ``fw_dev`` is the report run's [N, 19] final wealth on ``device``; the
     run's configuration (model, seed, engine mode with its bootstrap
@@ -322,7 +323,11 @@ def sampled_post_tax_tables(model, fw_dev, time_horizon: int,
     {pXX}, median_tax, win_rate_vs_spy_post_tax, n_sampled, method}} for
     the 13 taxable ids. ``stage_seconds``, when given, receives the
     seconds of each stage (pick_rows, replay, bridge, tax, interp_reduce;
-    bridge and tax summed over the two bridge groups)."""
+    bridge and tax summed over the two bridge groups). ``sample``, when
+    a dict, receives the sample each table was drawn from: {sid: {"rows":
+    [m] report rows, "wealth": [m] pre-tax final wealth, "tax": [m] exact
+    tax}} in sorted-wealth order, as lists; they leave the device in the
+    one copy that takes the tables."""
     from letf_tpu_torch.parallel.mc_runner import (
         _Run,
         _trial_layout,
@@ -357,6 +362,7 @@ def sampled_post_tax_tables(model, fw_dev, time_horizon: int,
         urow = np.searchsorted(uniq, rows_h)                      # [13, m]
 
     with _stage(stage_seconds, "replay", dev):
+        profiling.count("replayed_trials", len(uniq))
         ids, anti = _trial_layout(n, run.use_antithetic)
         _, emission = general_chunk(run, ids[uniq], anti[uniq],
                                     apply_costs=True)
@@ -386,7 +392,7 @@ def sampled_post_tax_tables(model, fw_dev, time_horizon: int,
         # SPY (S2) is a benchmark id without a journal: post-tax ==
         # pre-tax.
         spy_post = fw_dev[:n, cfg.STRATEGY_INDEX["S2"]].to(dt)
-        fans, wins, meds = [], [], []
+        fans, wins, meds, sws = [], [], [], []
         for i, sid in enumerate(sids):
             w = fw_dev[:n, wcol[sid]].to(dt)
             sw = w[rows[i]]
@@ -397,8 +403,20 @@ def sampled_post_tax_tables(model, fw_dev, time_horizon: int,
             wins.append((post > spy_post).to(dt).mean())
             meds.append(torch.quantile(tax_all, 0.5,
                                        interpolation="linear"))
-        fans, wins, meds = (torch.stack(v).cpu().numpy()
-                            for v in (fans, wins, meds))
+            sws.append(sw)
+        # One copy to the host: the tables, then the sample.
+        parts = [torch.stack(fans), torch.stack(wins), torch.stack(meds),
+                 torch.stack(sws), sample_tax]
+        host = torch.cat([v.reshape(-1) for v in parts]).cpu().numpy()
+        cuts = np.cumsum([v.numel() for v in parts])[:-1]
+        fans, wins, meds, sample_w, sample_t = (
+            h.reshape(v.shape) for h, v in zip(np.split(host, cuts), parts))
+
+    if sample is not None:
+        for i, sid in enumerate(sids):
+            sample[sid] = {"rows": rows_h[i].tolist(),
+                           "wealth": sample_w[i].tolist(),
+                           "tax": sample_t[i].tolist()}
 
     cap = float(cfg.INITIAL_CAPITAL)
     out = {}
