@@ -37,7 +37,11 @@ Phases, each raising on failure:
    samplers (csrc/draws.cu, phase_draws): the parametric 10-year
    report's seven normal and t calls over 16,384 keys (1,024 with
    --quick), each bitwise its torch twin, timed beside it, with their
-   integer floor.
+   integer floor. Then the emitting day kernel (csrc/emit_days.cu,
+   phase_emit_days) on the emitting engine's own inputs at [7,560, 650]
+   (the sampled replay) and [7,560, 16,384] (an exact-all chunk; 252
+   days with --quick), bitwise its torch twin, timed beside it and its
+   byte bound.
 4. Reports through kernels vs plain versions on the card: 1,024 trials x
    0.5 year pre-tax, and the default sampled report at 1,024 x 1 year.
 5. The general path against the slab path (K1, K2, K3): with the emitting
@@ -196,7 +200,7 @@ PEAK_F64 = 34e12
 # or 1, as the model's is, per-regime rows would make them loads.
 OPS_PER_TRIAL_DAY = {"joint": 419, "compose_strategies": 2000,
                      "strategies": 1200, "strategies_fused": 1500,
-                     "compose": 640, "gbm": 16}
+                     "compose": 640, "gbm": 16, "emit_days": 390}
 
 
 # bit_digest of K1's five outputs (x0, x1, x2, VIX, IRX) from the first
@@ -350,13 +354,13 @@ def observe_general_windows():
 
 def counters():
     """Each kernel's launch counter: name -> (module, attribute)."""
-    from letf_tpu_torch.ops import compose, gbm, joint, sort_bridge
+    from letf_tpu_torch.ops import compose, emit_days, gbm, joint, sort_bridge
     from letf_tpu_torch.ops import compose_strategies as k3
     from letf_tpu_torch.ops import strategies as k4
     from letf_tpu_torch.ops import rng, wash, window
 
     return {"joint": (joint, "LAUNCHES"), "window": (window, "LAUNCHES"),
-            "draws": (rng, "LAUNCHES"),
+            "draws": (rng, "LAUNCHES"), "emit_days": (emit_days, "LAUNCHES"),
             "window_tiles": (sys.modules[__name__], "GENERAL_WINDOWS"),
             "compose_strategies": (k3, "LAUNCHES"),
             "strategies": (k4, "LAUNCHES"), "compose": (compose, "LAUNCHES"),
@@ -1170,6 +1174,7 @@ def phase_main_path(model, counters):
     assert launches["compose"] == 1, launches
     assert launches["sort_bridge"] == 6, launches
     assert launches["wash"] == 3, launches
+    assert launches["emit_days"] == 1, launches
     assert launches["strategies"] == 0 and launches["gbm"] == 0, launches
     return launches, rep
 
@@ -1741,6 +1746,85 @@ def phase_draws(quick: bool):
     return dict(max_abs_err=0.0, ms=tot["ms"][1], ms_spread=tot["ms"],
                 plain_ms=tot["plain_ms"], bound_ms=tot["bound_ms"],
                 bound_by="operations", library_ms=None, shapes=shapes)
+
+
+def emit_days_inputs(model_t, B, sim, buf, seed=6):
+    """The positional arguments the emitting engine hands emit_days on a
+    general path of B trials (K1, K2', K5, signals), kept from its
+    call."""
+    from letf_tpu_torch.ops import rng
+    from letf_tpu_torch.ops.path_batched import generate_paths_batched
+    from letf_tpu_torch.strategies import engine
+    from letf_tpu_torch.strategies.signals import compute_signals
+
+    rows = torch.arange(B, device="cuda")
+    p = generate_paths_batched(model_t, rng.key(seed, "cuda"), rows // 2,
+                               rows % 2 == 1, sim_days=sim, buffer_days=buf)
+    sig = compute_signals(p)
+    kept = []
+
+    def keep(inner):
+        def emit_days(*args):
+            kept.append(args)
+            return inner(*args)
+        return emit_days
+
+    with wrapped(engine, "emit_days", keep):
+        engine.run_strategies_batch(p, sig, emit_trades=True)
+    return kept[0]
+
+
+def emit_days_bytes(S: int, B: int) -> int:
+    """What the emitting day kernel reads and writes once: 17 columns of
+    ret_all and 4 channels a day (S19's candidate, TQQQ, TMF, cash), S6's
+    two embedded leverages on its rebalance days, the cashflows; the
+    journal's 13 equities and S19's flag byte a day, 2 x 19 summaries."""
+    return (4 * S * B * (17 + 4 + 13) + 4 * 2 * ((S - 1) // 21) * B
+            + S * B + 4 * 2 * 19 * B + 4 * S)
+
+
+def phase_emit_days(model_t, quick: bool):
+    """The emitting day kernel (csrc/emit_days.cu) on the emitting
+    engine's own inputs (emit_days_inputs, 30 y + 5 y buffer; 252 + 126
+    days with ``quick``) at the sampled replay's 650 trials and at 16,384
+    (the inputs of 4,096 trials four times over: the whole emitting engine
+    at 16,384 x 30 y does not fit on the card beside its path): each
+    output bitwise the torch twin's (emit_days_plain, on the card), the
+    kernel timed (min/median/max over 5 runs, 2 with ``quick``) beside the
+    twin (once) and its byte bound."""
+    from letf_tpu_torch.ops import emit_days as ed
+
+    shape = QUICK if quick else FULL
+    sim, reps = shape["sim"], 2 if quick else 5
+    shapes = {}
+    for B, tiles in ((K5_REPORT_B, 1), (B_CHUNK, 4)):
+        args = emit_days_inputs(model_t, B // tiles, sim, shape["buf"])
+        args = (*(torch.cat([x] * tiles, dim=-1) for x in args[:7]),
+                *args[7:])
+        before = ed.LAUNCHES
+        ms, got = spread(lambda: ed.emit_days(*args), reps)
+        assert ed.LAUNCHES == before + reps + 1, ed.LAUNCHES
+        plain_ms, ref = timed(lambda: ed.emit_days_plain(*args), 1,
+                              warm=False)
+        for name, a, b in zip(("equity", "max_dd", "value", "traded19"),
+                              got, ref):
+            va, vb = ((a.view(torch.int32), b.view(torch.int32))
+                      if a.is_floating_point() else (a, b))
+            assert torch.equal(va, vb), (name, B)
+        b_ms, by = bound(emit_days_bytes(sim, B),
+                         OPS_PER_TRIAL_DAY["emit_days"] * sim * B)
+        shapes[f"{sim}x{B}"] = dict(ms_spread=ms, plain_ms=plain_ms,
+                                    bound_ms=b_ms, bound_by=by)
+        log(f"emit_days at [{sim}, {B}]: bitwise the twin; kernel "
+            f"{fmt_spread(ms)}, twin {plain_ms:.3f} ms, bound "
+            f"{b_ms:.4f} ms ({by})")
+        del args, got, ref
+        torch.cuda.empty_cache()
+    main = shapes[f"{sim}x{K5_REPORT_B}"]
+    return dict(max_abs_err=0.0, ms=main["ms_spread"][1],
+                ms_spread=main["ms_spread"], plain_ms=main["plain_ms"],
+                bound_ms=main["bound_ms"], bound_by=main["bound_by"],
+                library_ms=None, days=sim, shapes=shapes)
 
 
 def phase_k6(n=1_048_576, years=30, reps=5, gate=True):
@@ -4426,6 +4510,9 @@ KERNELS = {   # name -> (source, the TPU kernel it replaces, its path)
     "draws": ("letf_tpu_torch/csrc/draws.cu",
               "none (jax.random in XLA: letf_tpu/ops/path_engine.py)",
               "parametric_report"),
+    "emit_days": ("letf_tpu_torch/csrc/emit_days.cu",
+                  "none (the XLA scan of letf_tpu/strategies/engine.py's "
+                  "emitting path)", "default_report"),
 }
 
 
@@ -4469,6 +4556,8 @@ def main():
     model_t = from_numpy(model, "cuda", torch.float32)
     rec = run_phase("kernels", phase_kernels, model_t, args.quick)
     rec["draws"] = run_phase("draws", phase_draws, args.quick)
+    rec["emit_days"] = run_phase("emit_days", phase_emit_days, model_t,
+                                 args.quick)
     if args.quick:
         rec["strategies"] = phase_k4(general_channels(model_t, QUICK["sim"]))
         rec["gbm"] = phase_k6(n=65_536, years=1, reps=2, gate=False)

@@ -12,6 +12,7 @@ extern "C" int letf_info_gbm(int* out);
 extern "C" int letf_info_merge(int* out);
 extern "C" int letf_info_wash(int* out);
 extern "C" int letf_info_draws(int which, int* out);
+extern "C" int letf_info_emit_days(int* out);
 
 extern "C" int letf_kernel_info(int which, int* out) {
   switch (which) {
@@ -27,6 +28,7 @@ extern "C" int letf_kernel_info(int which, int* out) {
     case 9: return letf_info_draws(0, out);
     case 10: return letf_info_draws(1, out);
     case 11: return letf_info_draws(2, out);
+    case 12: return letf_info_emit_days(out);
     default: return 1;   // cudaErrorInvalidValue
   }
 }

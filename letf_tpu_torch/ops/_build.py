@@ -59,6 +59,7 @@ SIGNATURES = {
     "letf_draw_normal": [_P, _L, _L, _L, _I, _P, _P],
     "letf_draw_gamma": [_P, _L, _L, _D, _I, _I, _P, _P],
     "letf_draw_t": [_P, _L, _L, _D, _P, _I, _P, _P],
+    "letf_emit_days": [_P, _P, _I, _I, _I, _P, _P, _P, _P, _P],
     "letf_kernel_info": [_I, _P],
     "letf_joint_math_check": [_P, _P, _I, _P, _P],
 }
@@ -66,7 +67,7 @@ SIGNATURES = {
 # and the fields of each report (common.cuh::letf_fill_info).
 KERNEL_INFO = ("joint", "window", "compose_strategies", "strategies",
                "strategies_fused", "compose", "gbm", "merge", "wash",
-               "draws_normal", "draws_gamma", "draws_t")
+               "draws_normal", "draws_gamma", "draws_t", "emit_days")
 INFO_FIELDS = ("registers", "static_smem", "dynamic_smem", "local_bytes",
                "threads", "blocks_per_sm", "warps_per_sm")
 

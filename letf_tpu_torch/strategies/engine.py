@@ -14,8 +14,9 @@ compounding on day 1 while the S1-S3 benchmarks include day 0.
 Layout ``[S, B]`` (the path's ``etf_ret`` is ``[A, S, B]``); per-strategy
 carries are ``[NS, B]``. Every allocation that depends only on the signals
 (and the hysteresis states S4/S5, S8 and S9, which are forward fills) is
-computed for all days at once; the torch day loop carries only what is
-truly sequential: the equities with their cashflow overlay and ruin floor,
+computed for all days at once; only what is truly sequential goes to the
+day loop, ``ops/emit_days.py`` (one CUDA kernel on the card, its torch
+twin on the CPU): the equities with their cashflow overlay and ruin floor,
 running maxima and drawdowns, S6's sleeves and S19's thresholded
 allocation. The elementwise arithmetic is the reference's, so the split
 changes no value. Equity is floored at 0, and below float32's smallest
@@ -32,6 +33,15 @@ import torch
 from letf_tpu_torch import config as cfg
 from letf_tpu_torch.ops import rolling as rl
 from letf_tpu_torch.ops import strategies as k4
+from letf_tpu_torch.ops.emit_days import (  # noqa: F401 (public, as in JAX)
+    INITIAL_CAPITAL,
+    N_TAX,
+    NS,
+    S6_LEV,
+    SPREAD,
+    TAX_OFFSET,
+    emit_days,
+)
 from letf_tpu_torch.strategies.signals import (
     IDX_SPY,
     IDX_SSO,
@@ -41,16 +51,8 @@ from letf_tpu_torch.strategies.signals import (
     compute_signals,
 )
 
-NS = cfg.N_STRATEGIES          # 19
-N_TAX = len(cfg.TAXABLE_IDS)   # 13 (S7..S19)
-TAX_OFFSET = 6                 # taxable strategies start at column 6 (S7)
-INITIAL_CAPITAL = float(cfg.INITIAL_CAPITAL)
-SPREAD = 0.0003
 TURNOVER_EPS = 1e-4
 POS_CASH, POS_SAFE, POS_RISKY = 0, 1, 2
-FLT_MIN = float(torch.finfo(torch.float32).tiny)
-S6_W = (0.6, 0.4)
-S6_LEV = (float(cfg.ASSETS["TQQQ"].leverage), float(cfg.ASSETS["TMF"].leverage))
 
 
 class StrategyResults(NamedTuple):
@@ -136,10 +138,6 @@ def _bull(p, sma):
 
 def _guard(x, eps, default):
     return torch.where(torch.isnan(x) | (x < eps), default, x)
-
-
-def _ruin_floor(e):
-    return torch.where(e < FLT_MIN, 0.0, e)
 
 
 def run_strategies_batch(path, sig: SignalSet, apply_costs: bool = True,
@@ -331,63 +329,11 @@ def run_strategies_batch(path, sig: SignalSet, apply_costs: bool = True,
     cand19 = torch.clamp((0.32 / dv19) * (0.3 + conviction * 0.55), 0.0, 1.5)
 
     # ---- the day loop: S19's threshold, S6's sleeves, equities ----
-    alloc19 = torch.empty_like(cand19)
-    a19 = torch.zeros(B, dtype=dt, device=dev)
-    for t in range(S):
-        alloc19[t] = torch.where(torch.abs(cand19[t] - a19) > 0.05,
-                                 cand19[t], a19)
-        if t > 0:
-            a19 = alloc19[t]
-    turn19 = torch.abs(cand19 - _after_day(alloc19))
-    traded[18] = turn19 > 0.05
-    ret19 = alloc19 * r_tqqq + (1.0 - alloc19) * cash
-    if apply_costs:
-        ret19 = ret19 - torch.where(traded[18], turn19 * SPREAD, 0.0)
-    rets[18] = ret19
+    rets[18] = torch.zeros_like(r_tqqq)      # made in the loop, as S6's
+    eq, mdd, value, traded[18] = emit_days(
+        torch.stack(rets, dim=1), cand19, r_tqqq, r_tmf, cash, emb[0],
+        emb[1], cashflows, apply_costs)
     jr[12] = (traded[18], cand19, tqqq_price, IDX_TQQQ)
-
-    ret_all = torch.stack(rets, dim=1)                       # [S, NS, B]
-    ret_all[0, 3:] = 0.0
-    cf = (torch.zeros(S, dtype=dt, device=dev) if cashflows is None
-          else torch.as_tensor(cashflows, dtype=dt, device=dev))
-    eq = torch.full((NS, B), INITIAL_CAPITAL, dtype=dt, device=dev)
-    run_max = eq.clone()
-    mdd = torch.zeros_like(eq)
-    s6 = [torch.full((B,), INITIAL_CAPITAL * w, dtype=dt, device=dev)
-          for w in S6_W]
-    value = torch.empty((S, N_TAX, B), dtype=dt, device=dev)
-    for t in range(S):
-        value[t] = eq[TAX_OFFSET:]
-        pg = [s6[0] * (1.0 + r_tqqq[t]), s6[1] * (1.0 + r_tmf[t])]
-        total6 = pg[0] + pg[1]
-        if t > 0 and t % 21 == 0:
-            inv_t6 = 1.0 / torch.clamp_min(total6, 1e-30)
-            cw = [pg[0] * inv_t6, pg[1] * inv_t6]
-            w_turn = torch.abs(cw[0] - S6_W[0]) + torch.abs(cw[1] - S6_W[1])
-            lev_turn = (torch.abs(emb[0][t] - S6_LEV[0]) / S6_LEV[0] * cw[0]
-                        + torch.abs(emb[1][t] - S6_LEV[1]) / S6_LEV[1]
-                        * cw[1])
-            tot_turn = w_turn + lev_turn
-            total_after = total6
-            if apply_costs:
-                total_after = torch.where(
-                    tot_turn > 0.01,
-                    total6 * (1.0 - tot_turn * cfg.REBALANCE_COST_PER_DOLLAR),
-                    total6)
-            pg = [total_after * S6_W[0], total_after * S6_W[1]]
-        else:
-            total_after = total6
-        if t == 0:
-            pg, total_after = s6, eq[5]
-        eq_new = eq * (1.0 + ret_all[t])
-        eq_new[5] = total_after
-        eq_cf = _ruin_floor(torch.clamp_min(eq_new + cf[t], 0.0))
-        scale = eq_cf[5] / torch.clamp_min(eq_new[5], 1e-30)
-        s6 = [pg[0] * scale, pg[1] * scale]
-        run_max = eq_cf if t == 0 else torch.maximum(run_max, eq_cf)
-        dd = (eq_cf - run_max) / torch.where(run_max > 0, run_max, 1.0)
-        mdd = torch.maximum(mdd, -dd)
-        eq = eq_cf
 
     trades = torch.stack(traded, dim=1)[1:].sum(0, dtype=torch.int32)
     trades[5] *= 2                                  # S6 counts 2 per rebalance

@@ -679,8 +679,9 @@ def test_kernel_info_reports_every_kernel(dev):
     registers and 24 local bytes unchanged since PR 4), K1 at least 12 (4
     blocks of one recurrence and three draw warps), K4's channel mode and
     K5 at least 16 (4 blocks of four warps), all three without spilling,
-    K6 uses no local memory (no Payne-Hanek reduction) and K7 none (no
-    runtime-indexed parameter array)."""
+    K6 uses no local memory (no Payne-Hanek reduction), K7 none (no
+    runtime-indexed parameter array) and the emitting day kernel none (its
+    chunk of days stays in registers)."""
     from letf_tpu_torch.ops import _build
 
     info = _build.kernel_info()
@@ -698,6 +699,7 @@ def test_kernel_info_reports_every_kernel(dev):
     assert info["compose"]["local_bytes"] == 0, info
     assert info["gbm"]["local_bytes"] == 0, info
     assert info["merge"]["local_bytes"] == 0, info
+    assert info["emit_days"]["local_bytes"] == 0, info
 
 
 def test_gbm_kernel_matches_plain(dev):
